@@ -1,0 +1,34 @@
+"""osr_tpu_torch — the PyTorch + CUDA port of ``osr_tpu`` for NVIDIA Hopper.
+
+Batched, exact top-k BM25/TF-IDF search over the hybrid dense-head /
+postings-tail index, with the head scored on the GPU by hand-written CUDA
+kernels (``csrc/``) and the postings tail and exact merge on the host
+(``index/postings.py`` and the shared C++ runtime in ``native/``).
+
+Module names follow ``osr_tpu`` so each part has an obvious counterpart.
+This package imports neither JAX nor ``osr_tpu``. Exports are lazy: ``import
+osr_tpu_torch`` loads no submodule, builds nothing and touches no device.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "SparseIndex": "osr_tpu_torch.index.builder",
+    "SparseIndexBuilder": "osr_tpu_torch.index.builder",
+    "SparseSearchEngine": "osr_tpu_torch.retrieval.engine",
+    "SyntheticDataGenerator": "osr_tpu_torch.testing",
+    "index_from_arrays": "osr_tpu_torch.convert",
+    "layout_from_arrays": "osr_tpu_torch.convert",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'osr_tpu_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(module), name)

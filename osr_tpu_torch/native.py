@@ -1,0 +1,503 @@
+"""ctypes bindings to the shared C++ host runtime (``native/osr_native.cc``).
+
+The port's counterpart of ``osr_tpu/native/__init__.py``, limited to the
+functions its search path calls. The library is ``native/libosrnative.so``
+at the repository root (or the file ``OSR_TPU_NATIVE_LIB`` names); it is
+built with ``make -C native`` on first use when absent or older than its
+sources. Nothing loads or builds at import: each function loads the
+library when first called and raises ImportError when it cannot, and every
+caller then takes its NumPy reference path, as in ``osr_tpu``.
+
+Two properties of the shared runtime hold for every process that loads it:
+
+- Loading it runs a process-wide ``mallopt`` (``M_MMAP_THRESHOLD`` and
+  ``M_TRIM_THRESHOLD`` raised to 1 GiB) from a static initializer in
+  ``native/osr_native.cc``, which changes glibc's allocator for the whole
+  process, PyTorch included.
+- Its tail walker sorts rows with 12-bit radix digits and shifts an int32
+  by up to 36 bits when rows reach 2^24, which is undefined behaviour, so
+  :func:`tail_candidates_native` refuses ``num_rows >= 2**24`` before any
+  call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from osr_tpu_torch.index.layout import bf16_round
+
+_REPO_ROOT = Path(__file__).resolve().parents[1]
+_ABI_VERSION = 2  # osr_abi_version() in native/osr_native.cc
+WALKER_MAX_ROWS = 1 << 24
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_error: Optional[str] = None
+
+
+def _lib_path() -> Path:
+    return Path(
+        os.environ.get(
+            "OSR_TPU_NATIVE_LIB", _REPO_ROOT / "native" / "libosrnative.so"
+        )
+    )
+
+
+def _build_if_needed(path: Path) -> None:
+    src_dir = path.parent
+    inputs = [src_dir / "osr_native.cc", src_dir / "Makefile"]
+    src_mtime = max(
+        (p.stat().st_mtime for p in inputs if p.exists()), default=0.0
+    )
+    if path.exists() and path.stat().st_mtime >= src_mtime:
+        return
+    if not inputs[0].exists():
+        raise ImportError("native sources not present")
+    if os.environ.get("OSR_TPU_BUILD_NATIVE", "1") == "0":
+        raise ImportError("native auto-build disabled")
+    try:
+        subprocess.run(
+            ["make", "-C", str(src_dir)],
+            capture_output=True,
+            timeout=120,
+            check=True,
+        )
+    except (OSError, subprocess.SubprocessError) as e:
+        raise ImportError(f"native build failed: {e}") from e
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.osr_abi_version.restype = ctypes.c_int64
+    lib.osr_abi_version.argtypes = []
+    got = int(lib.osr_abi_version())
+    if got != _ABI_VERSION:
+        raise ImportError(f"native ABI {got}, bindings expect {_ABI_VERSION}")
+    c_char_p = ctypes.c_char_p
+    c_void_p = ctypes.c_void_p
+    c_i64 = ctypes.c_int64
+    c_int = ctypes.c_int
+    c_dbl = ctypes.c_double
+    p_i64 = ctypes.POINTER(ctypes.c_int64)
+    p_i32 = ctypes.POINTER(ctypes.c_int32)
+    p_f32 = ctypes.POINTER(ctypes.c_float)
+    p_i8 = ctypes.POINTER(ctypes.c_int8)
+    p_u8 = ctypes.POINTER(ctypes.c_uint8)
+
+    lib.tf_build.restype = c_void_p
+    lib.tf_build.argtypes = [c_char_p, c_i64, p_i64, c_i64]
+    for fn in ("tf_num_terms", "tf_nnz", "tf_term_bytes"):
+        getattr(lib, fn).restype = c_i64
+        getattr(lib, fn).argtypes = [c_void_p]
+    lib.tf_copy.restype = None
+    lib.tf_copy.argtypes = [
+        c_void_p, p_i64, p_i32, p_f32, p_f32, p_i64, c_char_p, p_i64,
+    ]
+    lib.tf_free.restype = None
+    lib.tf_free.argtypes = [c_void_p]
+    lib.tokenize_ascii.restype = c_i64
+    lib.tokenize_ascii.argtypes = [
+        c_char_p, c_i64, c_char_p, p_i64, p_i64, c_i64,
+    ]
+    lib.vocab_build.restype = c_void_p
+    lib.vocab_build.argtypes = [c_char_p, p_i64, c_i64]
+    lib.vocab_free.restype = None
+    lib.vocab_free.argtypes = [c_void_p]
+    lib.encode_queries.restype = c_i64
+    lib.encode_queries.argtypes = [
+        c_void_p, c_char_p, p_i64, c_i64, p_i32, p_f32, p_i64, c_i64,
+    ]
+    lib.tail_candidates.restype = c_i64
+    lib.tail_candidates.argtypes = [
+        p_i64, p_i32, p_f32, p_i32, p_f32, p_i64, c_i64,
+        p_i32, p_i32, p_f32, p_i64, c_i64,
+    ]
+    lib.cand_head_dot.restype = None
+    lib.cand_head_dot.argtypes = [
+        c_void_p, c_i64, p_f32, c_i64, p_i32, p_i32, c_i64,
+        p_i32, p_f32, p_i64, p_f32,
+    ]
+    lib.merge_topk.restype = None
+    lib.merge_topk.argtypes = [
+        p_f32, p_i32, c_i64, c_i64, p_i32, p_f32, p_i64, c_i64, p_f32,
+        p_f32, p_i32,
+    ]
+    lib.transpose_i8.restype = None
+    lib.transpose_i8.argtypes = [p_i8, c_i64, c_i64, p_i8]
+    lib.cand_head_dot_t.restype = None
+    lib.cand_head_dot_t.argtypes = [
+        p_i8, c_i64, p_i32, p_i64, c_i64, p_i32, p_f32, p_i64, p_f32,
+    ]
+    pack_args = [
+        p_i64, c_i64, c_i64, p_i32, p_f32, p_f32, p_f32, c_i64, c_i64,
+        c_int, c_dbl, c_dbl, c_dbl,
+    ]
+    lib.pack_hybrid_int8.restype = c_i64
+    lib.pack_hybrid_int8.argtypes = pack_args + [
+        p_i8, p_f32, p_i64, p_i32, p_f32, c_i64,
+    ]
+    lib.pack_hybrid_int4.restype = c_i64
+    lib.pack_hybrid_int4.argtypes = pack_args + [
+        p_u8, p_f32, p_i64, p_i32, p_f32, c_i64,
+    ]
+    lib.get_num_threads.restype = c_int
+    lib.get_num_threads.argtypes = []
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded runtime; raises ImportError when it cannot be built or
+    loaded (the failure is remembered for the life of the process)."""
+    global _lib, _error
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            if _error is not None:
+                raise ImportError(_error)
+            try:
+                path = _lib_path()
+                _build_if_needed(path)
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as e:
+                    raise ImportError(f"native library failed to load: {e}")
+                try:
+                    _lib = _bind(lib)
+                except AttributeError as e:
+                    raise ImportError(f"native library is stale: {e}")
+            except ImportError as e:
+                _error = str(e)
+                raise
+    return _lib
+
+
+def available() -> bool:
+    try:
+        library()
+        return True
+    except ImportError:
+        return False
+
+
+def _i64(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _i32(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _f32(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def get_num_threads() -> int:
+    """The thread count a large parallel section of the runtime uses."""
+    return int(library().get_num_threads())
+
+
+def build_corpus_tf(
+    texts_ascii: bytes, doc_offsets: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, List[str]]:
+    """Tokenize + TF-count a concatenated ASCII corpus: (indptr, term ids
+    in first-seen order, counts, doc lengths, df, terms)."""
+    lib = library()
+    ndocs = len(doc_offsets) - 1
+    doc_offsets = np.ascontiguousarray(doc_offsets, dtype=np.int64)
+    handle = lib.tf_build(texts_ascii, len(texts_ascii), _i64(doc_offsets), ndocs)
+    if not handle:
+        raise RuntimeError("tf_build failed")
+    try:
+        nterms = lib.tf_num_terms(handle)
+        nnz = lib.tf_nnz(handle)
+        tbytes = lib.tf_term_bytes(handle)
+        indptr = np.empty(ndocs + 1, dtype=np.int64)
+        term_ids = np.empty(nnz, dtype=np.int32)
+        counts = np.empty(nnz, dtype=np.float32)
+        doc_lengths = np.empty(ndocs, dtype=np.float32)
+        df = np.empty(nterms, dtype=np.int64)
+        term_buf = ctypes.create_string_buffer(max(tbytes, 1))
+        term_offs = np.empty(nterms + 1, dtype=np.int64)
+        lib.tf_copy(
+            handle, _i64(indptr), _i32(term_ids), _f32(counts),
+            _f32(doc_lengths), _i64(df), term_buf, _i64(term_offs),
+        )
+    finally:
+        lib.tf_free(handle)
+    raw = term_buf.raw[:tbytes]
+    terms = [
+        raw[term_offs[i] : term_offs[i + 1]].decode("ascii")
+        for i in range(nterms)
+    ]
+    return indptr, term_ids, counts, doc_lengths, df, terms
+
+
+def ascii_tokenize(text: str) -> List[str]:
+    """Tokenize ASCII text exactly like ``re.findall(r'\\b\\w+\\b',
+    text.lower())``."""
+    lib = library()
+    data = text.encode("ascii")
+    n = len(data)
+    out = ctypes.create_string_buffer(max(n, 1))
+    max_tokens = n // 2 + 1  # tokens alternate with separators at worst
+    starts = np.empty(max_tokens, dtype=np.int64)
+    ends = np.empty(max_tokens, dtype=np.int64)
+    count = lib.tokenize_ascii(
+        data, n, out, _i64(starts), _i64(ends), max_tokens
+    )
+    lowered = out.raw[:n]
+    return [lowered[starts[i] : ends[i]].decode("ascii") for i in range(count)]
+
+
+class NativeVocab:
+    """C++ vocabulary handle for batch query encoding. Terms are given in
+    term-id order; queries encode to sorted unique (term id, count) pairs
+    with out-of-vocabulary terms dropped."""
+
+    def __init__(self, terms_in_id_order):
+        self._lib = library()
+        buf = "".join(terms_in_id_order).encode("ascii")
+        offs = np.zeros(len(terms_in_id_order) + 1, dtype=np.int64)
+        np.cumsum([len(t) for t in terms_in_id_order], out=offs[1:])
+        self._handle = self._lib.vocab_build(buf, _i64(offs), len(offs) - 1)
+        if not self._handle:
+            raise RuntimeError("vocab_build failed")
+
+    def close(self) -> None:
+        h, self._handle = getattr(self, "_handle", None), None
+        if h:
+            self._lib.vocab_free(h)
+
+    def __del__(self):
+        self.close()
+
+    def encode_queries(self, texts):
+        """Encode a batch of ASCII queries -> flat (tids, counts, ptr)."""
+        encoded = [t.encode("ascii") for t in texts]
+        buf = b"".join(encoded)
+        offs = np.zeros(len(encoded) + 1, dtype=np.int64)
+        np.cumsum([len(e) for e in encoded], out=offs[1:])
+        cap = sum(len(e) // 2 + 1 for e in encoded)
+        tids = np.empty(max(cap, 1), dtype=np.int32)
+        counts = np.empty(max(cap, 1), dtype=np.float32)
+        ptr = np.zeros(len(encoded) + 1, dtype=np.int64)
+        total = self._lib.encode_queries(
+            self._handle, buf, _i64(offs), len(encoded),
+            _i32(tids), _f32(counts), _i64(ptr), cap,
+        )
+        if total < 0:
+            raise RuntimeError("encode_queries capacity exceeded")
+        return tids[:total].copy(), counts[:total].copy(), ptr
+
+
+def tail_candidates_native(
+    post_ptr, post_rows, post_weights, q_tids, q_counts, q_ptr, num_rows
+):
+    """Flat tail-candidate scoring (see index/postings.py). Refuses
+    ``num_rows >= 2**24``, where the walker's radix sort is undefined."""
+    if num_rows >= WALKER_MAX_ROWS:
+        raise ValueError(
+            f"the native tail walker supports < 2^24 rows (got {num_rows})"
+        )
+    lib = library()
+    nq = len(q_ptr) - 1
+    post_ptr = np.ascontiguousarray(post_ptr, dtype=np.int64)
+    post_rows = np.ascontiguousarray(post_rows, dtype=np.int32)
+    post_weights = np.ascontiguousarray(post_weights, dtype=np.float32)
+    q_tids = np.ascontiguousarray(q_tids, dtype=np.int32)
+    q_counts = np.ascontiguousarray(q_counts, dtype=np.float32)
+    q_ptr = np.ascontiguousarray(q_ptr, dtype=np.int64)
+    cap = (
+        int((post_ptr[q_tids + 1] - post_ptr[q_tids]).sum())
+        if len(q_tids)
+        else 0
+    )
+    cap = max(cap, 1)
+    rows = np.empty(cap, dtype=np.int32)
+    cols = np.empty(cap, dtype=np.int32)
+    tail = np.empty(cap, dtype=np.float32)
+    qptr = np.zeros(nq + 1, dtype=np.int64)
+    total = lib.tail_candidates(
+        _i64(post_ptr), _i32(post_rows), _f32(post_weights), _i32(q_tids),
+        _f32(q_counts), _i64(q_ptr), nq, _i32(rows), _i32(cols),
+        _f32(tail), _i64(qptr), cap,
+    )
+    if total < 0:
+        raise RuntimeError("tail_candidates capacity exceeded")
+    return rows, cols, tail, qptr, int(total)
+
+
+_HEAD_KIND = {"int8": 0, "f32": 1, "bf16": 2}
+
+
+def cand_head_dot_native(
+    head, head_dtype, head_scales, rows, cols, total,
+    qh_tids, qh_counts, qh_ptr,
+):
+    """out[m] = head score of candidate m's (row, owning query). A bf16
+    head is passed as its uint16 bit patterns."""
+    lib = library()
+    kind = _HEAD_KIND[head_dtype]
+    f = head.shape[1]
+    head_c = np.ascontiguousarray(head)
+    rows = np.ascontiguousarray(rows[:total], dtype=np.int32)
+    cols = np.ascontiguousarray(cols[:total], dtype=np.int32)
+    qh_tids = np.ascontiguousarray(qh_tids, dtype=np.int32)
+    qh_counts = np.ascontiguousarray(qh_counts, dtype=np.float32)
+    qh_ptr = np.ascontiguousarray(qh_ptr, dtype=np.int64)
+    if kind == 0 and head_scales is not None and len(qh_tids):
+        # Fold the column scales into the query weights and round to bf16,
+        # as the device rounds its query operand (ops/head.py).
+        qh_counts = bf16_round(
+            qh_counts * np.asarray(head_scales, np.float32)[qh_tids]
+        )
+        kind = 3
+    scales = (
+        np.ascontiguousarray(head_scales, dtype=np.float32)
+        if head_scales is not None
+        else np.zeros(1, dtype=np.float32)
+    )
+    out = np.zeros(max(total, 1), dtype=np.float32)
+    lib.cand_head_dot(
+        head_c.ctypes.data_as(ctypes.c_void_p), kind, _f32(scales), f,
+        _i32(rows), _i32(cols), total, _i32(qh_tids), _f32(qh_counts),
+        _i64(qh_ptr), _f32(out),
+    )
+    return out[:total]
+
+
+def transpose_i8_native(head: np.ndarray) -> np.ndarray:
+    """Blocked (R, F) -> (F, R) int8 transpose copy."""
+    lib = library()
+    r, f = head.shape
+    src = np.ascontiguousarray(head)
+    dst = np.empty((f, r), dtype=np.int8)
+    p8 = ctypes.POINTER(ctypes.c_int8)
+    lib.transpose_i8(src.ctypes.data_as(p8), r, f, dst.ctypes.data_as(p8))
+    return dst
+
+
+def cand_head_dot_t_native(
+    head_t, head_scales, rows, c_ptr, total, qh_tids, qh_counts, qh_ptr
+):
+    """Candidate head scores from the term-major (F, R) int8 head copy;
+    bit-identical to :func:`cand_head_dot_native`'s folded int8 path."""
+    lib = library()
+    f, r = head_t.shape
+    rows = np.ascontiguousarray(rows[:total], dtype=np.int32)
+    qh_tids = np.ascontiguousarray(qh_tids, dtype=np.int32)
+    qh_counts = np.ascontiguousarray(qh_counts, dtype=np.float32)
+    qh_ptr = np.ascontiguousarray(qh_ptr, dtype=np.int64)
+    nq = len(qh_ptr) - 1
+    c_ptr = np.ascontiguousarray(c_ptr, dtype=np.int64)
+    if len(c_ptr) > nq + 1:  # batch padding repeats the total
+        c_ptr = np.ascontiguousarray(c_ptr[: nq + 1])
+    elif len(c_ptr) < nq + 1:
+        c_ptr = np.concatenate(
+            [c_ptr, np.full(nq + 1 - len(c_ptr), c_ptr[-1], c_ptr.dtype)]
+        )
+    if head_scales is not None and len(qh_tids):
+        qh_counts = bf16_round(
+            qh_counts * np.asarray(head_scales, np.float32)[qh_tids]
+        )
+    out = np.zeros(max(total, 1), dtype=np.float32)
+    p8 = ctypes.POINTER(ctypes.c_int8)
+    lib.cand_head_dot_t(
+        np.ascontiguousarray(head_t).ctypes.data_as(p8), r, _i32(rows),
+        _i64(c_ptr), nq, _i32(qh_tids), _f32(qh_counts), _i64(qh_ptr),
+        _f32(out),
+    )
+    return out[:total]
+
+
+def _pack_hybrid(
+    fn_name, head_dtype, indptr, term_ids, tfs, doc_lengths, idf,
+    rows, head_terms, vocab_size, method, k1, b, avgdl,
+):
+    lib = library()
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    term_ids = np.ascontiguousarray(term_ids, dtype=np.int32)
+    tfs = np.ascontiguousarray(tfs, dtype=np.float32)
+    doc_lengths = np.ascontiguousarray(doc_lengths, dtype=np.float32)
+    idf = np.ascontiguousarray(idf, dtype=np.float32)
+    ndocs = len(indptr) - 1
+    f = int(head_terms)
+    width = (f + 1) // 2 if head_dtype == np.uint8 else f
+    n_tail_terms = max(vocab_size - f, 0)
+    tail_cap = int(np.count_nonzero(term_ids >= f)) if term_ids.size else 0
+    head = np.empty((rows, width), dtype=head_dtype)
+    scales = np.empty(f, dtype=np.float32)
+    post_ptr = np.zeros(n_tail_terms + 1, dtype=np.int64)
+    post_rows = np.empty(max(tail_cap, 1), dtype=np.int32)
+    post_weights = np.empty(max(tail_cap, 1), dtype=np.float32)
+    p_head = ctypes.POINTER(
+        ctypes.c_uint8 if head_dtype == np.uint8 else ctypes.c_int8
+    )
+    got = getattr(lib, fn_name)(
+        _i64(indptr), ndocs, rows, _i32(term_ids), _f32(tfs),
+        _f32(doc_lengths), _f32(idf), f, vocab_size,
+        0 if method == "bm25" else 1, float(k1), float(b), float(avgdl),
+        head.ctypes.data_as(p_head), _f32(scales), _i64(post_ptr),
+        _i32(post_rows), _f32(post_weights), tail_cap,
+    )
+    if got != tail_cap:
+        raise RuntimeError(f"{fn_name} tail mismatch: {got} != {tail_cap}")
+    return head, scales, post_ptr, post_rows[:tail_cap], post_weights[:tail_cap]
+
+
+def pack_hybrid_int8_native(
+    indptr, term_ids, tfs, doc_lengths, idf,
+    rows, head_terms, vocab_size, method, k1, b, avgdl,
+):
+    """Fused weight + int8-head + postings pack, bit-identical to
+    builder.compute_weights_flat + layout.pack_flat(head_dtype='int8')."""
+    return _pack_hybrid(
+        "pack_hybrid_int8", np.int8, indptr, term_ids, tfs, doc_lengths,
+        idf, rows, head_terms, vocab_size, method, k1, b, avgdl,
+    )
+
+
+def pack_hybrid_int4_native(
+    indptr, term_ids, tfs, doc_lengths, idf,
+    rows, head_terms, vocab_size, method, k1, b, avgdl,
+):
+    """The int4 counterpart of :func:`pack_hybrid_int8_native` (unsigned
+    nibble codes, signed scales, block packing)."""
+    return _pack_hybrid(
+        "pack_hybrid_int4", np.uint8, indptr, term_ids, tfs, doc_lengths,
+        idf, rows, head_terms, vocab_size, method, k1, b, avgdl,
+    )
+
+
+def merge_topk_native(
+    head_s, head_r, c_rows, c_tot, c_ptr, total, k, tau_slack=None
+):
+    """Exact host merge (see postings.merge_host). ``tau_slack`` is the
+    per-query prefilter slack; None disables the prefilter."""
+    lib = library()
+    b, kh = head_s.shape
+    head_s = np.ascontiguousarray(head_s, dtype=np.float32)
+    head_r = np.ascontiguousarray(head_r, dtype=np.int32)
+    c_rows = np.ascontiguousarray(c_rows[:total], dtype=np.int32)
+    c_tot = np.ascontiguousarray(c_tot[:total], dtype=np.float32)
+    c_ptr = np.ascontiguousarray(c_ptr, dtype=np.int64)
+    if tau_slack is None:
+        tau_slack = np.full(b, np.inf, dtype=np.float32)
+    else:
+        tau_slack = np.ascontiguousarray(tau_slack, dtype=np.float32)
+        if tau_slack.shape != (b,):
+            raise ValueError(f"tau_slack shape {tau_slack.shape} != ({b},)")
+    out_s = np.empty((b, k), dtype=np.float32)
+    out_r = np.empty((b, k), dtype=np.int32)
+    lib.merge_topk(
+        _f32(head_s), _i32(head_r), b, kh, _i32(c_rows), _f32(c_tot),
+        _i64(c_ptr), k, _f32(tau_slack), _f32(out_s), _i32(out_r),
+    )
+    return out_s, out_r

@@ -1,0 +1,164 @@
+"""Batched sparse scoring: the device step of a search batch (counterpart
+of ``osr_tpu/ops/bm25.py``).
+
+The hybrid index (``index/layout.py``) splits each document's weights into
+a dense head over the F most common terms and a postings tail. The device
+step scores the head for the whole batch and selects its exact top-k; the
+host scores the tail and merges (``index/postings.py:merge_host``). The
+exactness of that split is argued in :func:`fused_search`.
+
+Head scoring per head dtype:
+
+- int8 / int4: on a CUDA device the hand-written kernels of
+  ``ops/head.py`` (K1, K2, K3); elsewhere, or with ``head_backend='torch'``,
+  their plain PyTorch versions.
+- bf16 / f32: a plain float32 product on every device (TF32 off), as
+  ``osr_tpu`` runs XLA there; no Pallas kernel exists for these modes.
+
+Rows travel as int32 tensors and results leave the device through the
+engine's pinned buffers; nothing here packs rows into floats.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from osr_tpu_torch.ops import head as head_ops
+from osr_tpu_torch.ops.topk import block_max, block_topk_from_max, topk
+
+NEG_INF = float("-inf")
+
+# Block-pruned selection pays off only where the head has many more
+# 128-row blocks than the k it must keep (osr_tpu/ops/bm25.py:189-191).
+BLOCK_PRUNE_MIN_ROWS = 4096
+
+
+def scatter_query_head(
+    term_ids: torch.Tensor,  # (B, Q) int32; ids outside [0, F) are dropped
+    term_weights: torch.Tensor,  # (B, Q) float32, padded with 0
+    *,
+    head_terms: int,
+) -> torch.Tensor:
+    """Scatter padded sparse queries into a dense (B, F) float32 matrix.
+
+    Padding and tail ids (>= F) land in one spare column that is cut off,
+    so the scatter needs no data-dependent mask (no device sync)."""
+    b = term_ids.shape[0]
+    ids = term_ids.long()
+    ids = torch.where((ids >= 0) & (ids < head_terms), ids, head_terms)
+    qw = torch.zeros(
+        (b, head_terms + 1), dtype=torch.float32, device=term_ids.device
+    )
+    qw.scatter_add_(1, ids, term_weights.float())
+    return qw[:, :head_terms]
+
+
+def head_scores(
+    head: torch.Tensor,  # (R, F) int8 | (R, F/2) uint8 | bf16 | f32
+    head_scales: Optional[torch.Tensor],  # (F,) f32 for int8/int4
+    qhead: torch.Tensor,  # (B, F) f32 query weights
+) -> torch.Tensor:
+    """(B, R) f32 unmasked head scores, plain PyTorch.
+
+    int8/int4: scaled queries round to bf16, codes are exact, f32
+    products and sums (``ops/head.py:quantized_head_scores``). bf16: the
+    stored bf16 weights against bf16-rounded query weights, products and
+    sums in f32. f32: full float32 (``osr_tpu`` runs HIGHEST precision)."""
+    if head.shape[1] == 0:
+        return torch.zeros(
+            (qhead.shape[0], head.shape[0]), dtype=torch.float32,
+            device=head.device,
+        )
+    if head.dtype in (torch.int8, torch.uint8):
+        return head_ops.quantized_head_scores(head, head_scales, qhead)
+    if head.dtype == torch.bfloat16:
+        q = qhead.to(torch.bfloat16).float()
+    else:
+        q = qhead.float()
+    w = head.float()
+    if w.shape[1] > q.shape[1]:  # head columns padded at upload
+        q = torch.nn.functional.pad(q, (0, w.shape[1] - q.shape[1]))
+    with head_ops.f32_matmul():
+        return q @ w.T
+
+
+def fused_search(
+    q_head_ids: torch.Tensor,  # (B, Qh) int32, padding >= head_terms
+    q_head_weights: torch.Tensor,  # (B, Qh) f32
+    cand_flat_rows: torch.Tensor,  # (M,) int32 candidate rows, query-major
+    cand_flat_cols: torch.Tensor,  # (M,) int32 owning query per candidate
+    head: torch.Tensor,  # (R, F) on the search device
+    head_scales: Optional[torch.Tensor],  # (F,) or None
+    valid: torch.Tensor,  # (R,) bool
+    *,
+    head_terms: int,
+    k: int,
+    head_backend: str,  # 'cuda' | 'torch'
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched device search step.
+
+    Returns (head_top_scores (B, k') f32, head_top_rows (B, k') int32,
+    cand_head_scores (M,) f32), k' = min(k, R). ``head_backend='cuda'``
+    scores an int8/int4 head on a CUDA device with the kernels, 'torch'
+    with the plain version (the engine chooses).
+
+    Exactness of the host merge (proof, as in ``osr_tpu``): tail weights
+    are strictly positive (non-positive-IDF terms live in the head), so a
+    document's total is at least its head score. A document neither
+    tail-touched nor in the head top-k is outscored by all k head-top
+    documents, so it cannot be in the true top-k. Head-top entries that
+    are tail-touched carry a head-only score; the merge masks them and
+    takes their exact totals from the candidate channel.
+    """
+    qhead = scatter_query_head(
+        q_head_ids, q_head_weights, head_terms=head_terms
+    )
+    r = head.shape[0]
+    kk = min(k, r)
+    use_block_prune = r >= BLOCK_PRUNE_MIN_ROWS and r // 128 > 2 * kk
+    quantized = head.dtype in (torch.int8, torch.uint8)
+    bmax = None
+    if head_backend == "cuda":
+        if not quantized or head.device.type != "cuda":
+            raise ValueError(
+                "head_backend='cuda' needs an int8 or int4 head on a CUDA "
+                f"device (got {head.dtype} on {head.device})"
+            )
+        if use_block_prune or head.dtype == torch.uint8:
+            # int4 has no scores-only kernel: K3's maxima go unused when
+            # the selection is not block-pruned.
+            hs, bmax = head_ops.masked_head_scores_blockmax(
+                head, head_scales, qhead, valid
+            )
+        else:
+            hs = head_ops.masked_head_scores(head, head_scales, qhead, valid)
+    elif head_backend == "torch":
+        hs = head_scores(head, head_scales, qhead)
+        hs = hs.masked_fill(~valid[None, :], NEG_INF)
+    else:
+        raise ValueError(f"Unknown head_backend: {head_backend}")
+    if use_block_prune:
+        if bmax is None:
+            bmax = block_max(hs)
+        head_top, head_rows = block_topk_from_max(hs, bmax, k=kk)
+    else:
+        head_top, head_rows = topk(hs, k=kk)
+    cand_head = hs[cand_flat_cols.long(), cand_flat_rows.long()]
+    return head_top, head_rows, cand_head
+
+
+def dense_head_scores(
+    q_head_ids: torch.Tensor,
+    q_head_weights: torch.Tensor,
+    head: torch.Tensor,
+    head_scales: Optional[torch.Tensor],
+    *,
+    head_terms: int,
+) -> torch.Tensor:
+    """(B, R) head scores for the oracle/score_all path (host adds tail)."""
+    qhead = scatter_query_head(
+        q_head_ids, q_head_weights, head_terms=head_terms
+    )
+    return head_scores(head, head_scales, qhead)

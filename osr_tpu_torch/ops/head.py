@@ -1,0 +1,263 @@
+"""Masked sparse-head scoring: the hand-written Hopper kernels and their
+plain PyTorch versions (counterpart of ``osr_tpu/ops/pallas/head.py``).
+
+The dense head of the hybrid index (``index/layout.py``) is scored for a
+whole query batch by one contraction over the head width. The per-column
+scales fold into the query side (``(A diag(s)) q == A (s q)``), and the
+scaled query rounds to bf16 (round to nearest even) before the product,
+exactly as ``osr_tpu/ops/pallas/head.py:_pad_operands`` does. int8 and
+int4 codes are exact in bf16, products of a bf16 and a code are exact in
+f32, and sums accumulate in f32: the host merge's slack bound
+(``index/postings.py:merge_tau_slack``) assumes all three.
+
+Wrappers, each with its plain version beside it:
+
+- :func:`masked_head_scores` (int8): launches K1 on a CUDA tensor.
+  Replaces ``osr_tpu/ops/pallas/head.py:_head_kernel`` (via
+  ``head_scores_pallas``).
+- :func:`masked_head_scores_blockmax` (int8 or int4): launches K2 (int8)
+  or K3 (int4). Replaces ``_head_blockmax_kernel`` and
+  ``_head_blockmax_kernel_i4`` (via ``head_scores_blockmax_pallas``).
+
+All three are one templated CUDA kernel (``csrc/head.cu``). Bound on an
+H100 at the bench shape (B=3,328, R=57,640, F=2,048): 7.86e11 FLOP over
+989 TFLOP/s bf16 = 0.79 ms against 0.27 ms of bytes, so the tensor cores
+bound it. Its design answers that with one (128 x 128) output tile per
+thread block fed to bf16 ``mma.sync`` from shared memory, the block maxima
+reduced inside the block (no second pass over the (B, R) matrix), and a
+block order that keeps each head tile in L2 while every query tile reads
+it. Details at the top of ``csrc/head.cu``.
+
+A wrapper takes the plain version only for tensors on the CPU; on a CUDA
+tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
+launches (plain calls are not counted).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from osr_tpu_torch.ops.topk import block_max
+
+ROW_TILE = 128  # the kernels' head-row tile: one 128-row pruning block
+COL_ALIGN = 16  # the kernels' head-width alignment, in bytes
+
+LAUNCHES: Dict[str, int] = {
+    "head_scores_i8": 0,  # K1
+    "head_blockmax_i8": 0,  # K2
+    "head_blockmax_i4": 0,  # K3
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the reference on the card)
+# ----------------------------------------------------------------------
+
+
+def scaled_query(
+    qhead: torch.Tensor,  # (B, F) f32 query weights
+    head_scales: torch.Tensor,  # (F,) f32
+    width: int,  # the head's logical width (>= F), zero-padded
+) -> torch.Tensor:
+    """(B, width) bf16 query operand: counts x column scales, rounded to
+    bf16, zero-padded to the head's logical width."""
+    q = (qhead.float() * head_scales.float()[None, :]).to(torch.bfloat16)
+    pad = width - q.shape[1]
+    if pad < 0:
+        raise ValueError(
+            f"query width {q.shape[1]} exceeds the head's width {width}"
+        )
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+    return q.contiguous()
+
+
+def logical_width(head: torch.Tensor) -> int:
+    """Logical head columns: int8 width, or twice the int4 packed width."""
+    return 2 * head.shape[1] if head.dtype == torch.uint8 else head.shape[1]
+
+
+def decode_head(head: torch.Tensor) -> torch.Tensor:
+    """(R, W) f32 codes of an int8 head, or of a block-packed int4 head
+    (low nibble of byte c is column c, high nibble column c + packed
+    width; codes are unsigned)."""
+    if head.dtype == torch.uint8:
+        return torch.cat([head & 0xF, head >> 4], dim=1).float()
+    return head.float()
+
+
+class f32_matmul:
+    """Context in which CUDA float32 matrix products run in full float32
+    (TF32 off), restoring the caller's setting afterwards."""
+
+    def __enter__(self):
+        self._saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._saved
+        return False
+
+
+def quantized_head_scores(
+    head: torch.Tensor,  # (R, F) int8 or (R, F/2) uint8 int4-packed
+    head_scales: torch.Tensor,  # (F,) f32
+    qhead: torch.Tensor,  # (B, F) f32
+) -> torch.Tensor:
+    """(B, R) f32 unmasked head scores, plain: bf16-rounded scaled query,
+    exact codes, f32 products and f32 accumulation."""
+    q = scaled_query(qhead, head_scales, logical_width(head)).float()
+    with f32_matmul():
+        return q @ decode_head(head).T
+
+
+def masked_head_scores_plain(head, head_scales, qhead, valid):
+    """Plain twin of K1 (and of K3 without its maxima)."""
+    hs = quantized_head_scores(head, head_scales, qhead)
+    return hs.masked_fill(~valid[None, :], float("-inf"))
+
+
+def masked_head_scores_blockmax_plain(head, head_scales, qhead, valid):
+    """Plain twin of K2/K3: ((B, R) masked scores, (B, G) block maxima)."""
+    hs = masked_head_scores_plain(head, head_scales, qhead, valid)
+    return hs, block_max(hs)
+
+
+# ----------------------------------------------------------------------
+# Kernel wrappers
+# ----------------------------------------------------------------------
+
+
+def _check_operands(head, head_scales, qhead, valid):
+    dev = head.device
+    for name, t in (
+        ("head_scales", head_scales),
+        ("qhead", qhead),
+        ("valid", valid),
+    ):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, head on {dev}")
+    if head.dtype not in (torch.int8, torch.uint8) or head.dim() != 2:
+        raise ValueError(
+            f"head must be a 2-D int8 or int4-packed uint8 tensor, got "
+            f"{head.dtype} {tuple(head.shape)}"
+        )
+    if not head.is_contiguous():
+        raise ValueError("head must be contiguous")
+    if head.shape[1] % COL_ALIGN:
+        raise ValueError(
+            f"head width {head.shape[1]} is not a multiple of {COL_ALIGN}; "
+            "pad the columns at upload (retrieval/engine.py:_DeviceIndex)"
+        )
+    if valid.dtype != torch.bool or valid.shape != (head.shape[0],):
+        raise ValueError(
+            f"valid must be a ({head.shape[0]},) bool tensor, got "
+            f"{valid.dtype} {tuple(valid.shape)}"
+        )
+    if not valid.is_contiguous():
+        raise ValueError("valid must be contiguous")
+    if qhead.dtype != torch.float32 or head_scales.dtype != torch.float32:
+        raise ValueError("qhead and head_scales must be float32")
+    if qhead.dim() != 2 or head_scales.shape != (qhead.shape[1],):
+        raise ValueError(
+            f"qhead {tuple(qhead.shape)} and head_scales "
+            f"{tuple(head_scales.shape)} disagree"
+        )
+    if qhead.shape[1] > logical_width(head):
+        raise ValueError(
+            f"qhead has {qhead.shape[1]} columns, the head "
+            f"{logical_width(head)}"
+        )
+    if head.shape[0] >= 2**31 or qhead.shape[0] >= 2**31:
+        raise ValueError("kernel dimensions must fit int32")
+
+
+def _launch(head, q, valid, out, bmax, int4: bool, name: str) -> None:
+    from osr_tpu_torch.ops import _build
+
+    lib = _build.library("head")
+    stream = torch.cuda.current_stream(head.device).cuda_stream
+    code = lib.osr_head_scores(
+        q.data_ptr(),
+        head.data_ptr(),
+        valid.data_ptr(),
+        out.data_ptr(),
+        bmax.data_ptr() if bmax is not None else None,
+        q.shape[0],
+        head.shape[0],
+        head.shape[1],
+        int(int4),
+        int(bmax is not None),
+        stream,
+    )
+    _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+
+
+def masked_head_scores(
+    head: torch.Tensor,  # (R, F) int8
+    head_scales: torch.Tensor,  # (F,) f32
+    qhead: torch.Tensor,  # (B, F) f32 query weights
+    valid: torch.Tensor,  # (R,) bool
+) -> torch.Tensor:
+    """(B, R) f32 masked head scores of an int8 head (K1 on CUDA).
+
+    int8 only, like ``osr_tpu``'s ``masked_head_scores``: an int4 head
+    goes through :func:`masked_head_scores_blockmax`."""
+    if head.dtype == torch.uint8:
+        raise ValueError(
+            "masked_head_scores has no int4 kernel; use "
+            "masked_head_scores_blockmax"
+        )
+    if head.device.type == "cpu":
+        return masked_head_scores_plain(head, head_scales, qhead, valid)
+    if head.device.type != "cuda":
+        raise ValueError(f"no kernel for device {head.device}")
+    _check_operands(head, head_scales, qhead, valid)
+    with torch.cuda.device(head.device):
+        q = scaled_query(qhead, head_scales, head.shape[1])
+        out = torch.empty(
+            (q.shape[0], head.shape[0]), dtype=torch.float32,
+            device=head.device,
+        )
+        _launch(head, q, valid, out, None, False, "head_scores_i8")
+    return out
+
+
+def masked_head_scores_blockmax(
+    head: torch.Tensor,  # (R, F) int8 or (R, F/2) uint8 int4-packed
+    head_scales: torch.Tensor,  # (F,) f32
+    qhead: torch.Tensor,  # (B, F) f32 query weights
+    valid: torch.Tensor,  # (R,) bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((B, R) f32 masked scores, (B, G) f32 block maxima), G = ceil(R /
+    128); block g covers rows [128 g, 128 g + 128) and rows beyond R are
+    -inf (K2 for int8, K3 for int4 on CUDA). The maxima are a transposed
+    view of the kernel's (G, B) output."""
+    if head.device.type == "cpu":
+        return masked_head_scores_blockmax_plain(
+            head, head_scales, qhead, valid
+        )
+    if head.device.type != "cuda":
+        raise ValueError(f"no kernel for device {head.device}")
+    _check_operands(head, head_scales, qhead, valid)
+    int4 = head.dtype == torch.uint8
+    with torch.cuda.device(head.device):
+        q = scaled_query(qhead, head_scales, logical_width(head))
+        b, r = q.shape[0], head.shape[0]
+        g = -(-r // ROW_TILE)
+        out = torch.empty((b, r), dtype=torch.float32, device=head.device)
+        bmax = torch.empty((g, b), dtype=torch.float32, device=head.device)
+        _launch(
+            head, q, valid, out, bmax, int4,
+            "head_blockmax_i4" if int4 else "head_blockmax_i8",
+        )
+    return out, bmax.T

@@ -1,0 +1,47 @@
+"""Importing the PyTorch port loads neither JAX nor osr_tpu."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import sys
+import osr_tpu_torch
+from osr_tpu_torch.retrieval.engine import SparseSearchEngine
+from osr_tpu_torch import SparseIndexBuilder, index_from_arrays
+import osr_tpu_torch.ops.head, osr_tpu_torch.ops._build, osr_tpu_torch.native
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes")
+    or m.startswith(("jax.", "jaxlib.", "osr_tpu."))
+)
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_without_jax_or_osr_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_package_import_is_lazy():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, osr_tpu_torch; "
+         "print(sorted(m for m in sys.modules if m.startswith('osr_tpu_torch')))"],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['osr_tpu_torch']"
