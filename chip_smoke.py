@@ -4,13 +4,16 @@ recorded in PERF.md).
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. build the hand-written kernels (osr_tpu_torch/csrc) with nvcc;
+1. build the hand-written kernels (osr_tpu_torch/csrc: head.cu, matmul.cu,
+   quantize.cu) with nvcc, one process per source, all at once;
 2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
    a ragged small shape and at the FiQA bench shape (the main path's own
    inputs), with the tolerance of tests/test_torch_head.py; time each
-   kernel, its plain version and a one-call PyTorch yardstick;
-3. drive the main path: the bench.py FiQA-scale corpus (57,638 docs,
-   100k-term vocabulary) and its 6,648 queries through
+   kernel, its plain version and a one-call PyTorch yardstick; hold K5, K6,
+   K7 (both roundings) and K8 against theirs at a ragged shape (B=37,
+   N=1,000, D=776), where the error must be 0;
+3. drive the sparse main path: the bench.py FiQA-scale corpus (57,638
+   docs, 100k-term vocabulary) and its 6,648 queries through
    SparseSearchEngine(device="cuda", batch_sizes=(3328,)) at top_k=50 (K2),
    the same index at top_k=1000 (K1), and an int4 build (K3), counting
    each kernel's launches in each run;
@@ -18,7 +21,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    engine whose head step is the plain version, and every real candidate's
    kernel head score is within merge_tau_slack of cand_head_scores_host;
 5. the device step per batch (CUDA events), main-path QPS (median of 5
-   passes), one batch timed stage by stage, and p50 single-query latency.
+   passes), one batch timed stage by stage, and p50 single-query latency;
+6. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
+   int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
+   embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
+   1,024 at top_k=50, launches counted; the corpus codes equal the plain
+   quantizer's; 256 queries give the backend='torch' engine's ids and
+   bit-equal scores; the self-hit rate; each kernel against its plain
+   version at the path's shapes (error 0) with its times; the dense device
+   step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
+7. drive the quantization round trip (quantize, dequantize; deterministic
+   and stochastic, as benchmarks/suites.py's quantization suite does) on
+   the 1M corpus, counting K7 and K8, and time K7 and K8 there; then dense
+   QPS at bench.py's own dense shape (the bench corpus size x 768,
+   B=4,096), for reference.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers,
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
@@ -40,15 +56,49 @@ TOP_K = 50
 DEEP_K = 1_000  # the depth BEIR evaluation retrieves
 BATCH = ((NUM_QUERIES // 2 + 7) // 8) * 8  # 3,328: two batches per pass
 MERGE_QUERIES = 256
+DENSE_DOCS = 1_000_000
+DENSE_DIM = 768
+DENSE_BATCH = 1_024
+DENSE_QUERIES = 4_096
+DENSE_CHECK = 256  # queries held against the backend='torch' engine
+BENCH_DENSE_BATCH = 4_096  # bench.py's dense batch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+PEAK_F32_OPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
-KERNELS = {
+HEAD_KERNELS = {
     # launch-counter name: the Pallas kernel it replaces
     "head_scores_i8": "osr_tpu/ops/pallas/head.py:42",
     "head_blockmax_i8": "osr_tpu/ops/pallas/head.py:208",
     "head_blockmax_i4": "osr_tpu/ops/pallas/head.py:225",
 }
-SOURCE = "osr_tpu_torch/csrc/head.cu"
+DENSE_KERNELS = {
+    "int8_similarity": "osr_tpu/ops/pallas/matmul.py:24",
+    "int4_similarity": "osr_tpu/ops/pallas/matmul.py:36",
+    "quantize_symmetric": "osr_tpu/ops/pallas/quantize.py:24",
+    "quantize_symmetric_stochastic": "osr_tpu/ops/pallas/quantize.py:32",
+    "dequantize_symmetric": "osr_tpu/ops/pallas/quantize.py:115",
+}
+KERNELS = {**HEAD_KERNELS, **DENSE_KERNELS}
+SOURCES = {
+    "head.cu": HEAD_KERNELS,
+    "matmul.cu": ("int8_similarity", "int4_similarity"),
+    "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
+                    "dequantize_symmetric"),
+}
+SOURCE_OF = {k: f"osr_tpu_torch/csrc/{src}" for src, ks in SOURCES.items()
+             for k in ks}
+# ptxas function-name fragments of the instantiations the paths launch.
+MANGLED = {
+    "head_scores_kernelILb0ELb0E": "head_scores_i8",
+    "head_scores_kernelILb0ELb1E": "head_blockmax_i8",
+    "head_scores_kernelILb1ELb1E": "head_blockmax_i4",
+    "similarity_kernelILb0ELb1E": "int8_similarity",
+    "similarity_kernelILb1ELb1E": "int4_similarity",
+    "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
+    "quantize_rows_kernelILb1ELb1E": "quantize_symmetric_stochastic",
+    "dequantize_rows_kernelILb1E": "dequantize_symmetric",
+}
 
 
 def log(msg):
@@ -70,26 +120,35 @@ def card_line():
 
 def kernel_registers():
     """Registers per thread of each kernel as ptxas reports them
-    (``nvcc --resource-usage``); the count sets blocks per SM."""
+    (``nvcc --resource-usage``, one process per source, run at once); the
+    count sets blocks per SM."""
     from osr_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    obj = _build.BUILD_DIR / "resource_usage.o"
-    out = subprocess.run(
-        [_build._nvcc(), *flags, "--resource-usage", "-c", "-o", str(obj),
-         str(_build.CSRC / "head.cu")],
-        capture_output=True, text=True, timeout=600, check=True,
-    )
-    obj.unlink(missing_ok=True)
-    # head_scores_kernel<kInt4, kBlockMax> mangles as ILb<int4>ELb<bmax>E.
-    names = {"ILb0ELb0E": "head_scores_i8", "ILb0ELb1E": "head_blockmax_i8",
-             "ILb1ELb1E": "head_blockmax_i4"}
+    procs = []
+    for src in SOURCES:
+        obj = _build.BUILD_DIR / f"resource_usage_{src}.o"
+        procs.append((obj, subprocess.Popen(
+            [_build._nvcc(), *flags, "--resource-usage", "-c", "-o",
+             str(obj), str(_build.CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    outs = []
+    for obj, proc in procs:  # wait for every nvcc before judging any
+        outs.append(proc.communicate(timeout=600)[0])
+        obj.unlink(missing_ok=True)
     regs, current = {}, None
-    for line in (out.stdout + out.stderr).splitlines():
-        current = next((n for m, n in names.items() if m in line), current)
-        if "registers" in line and current is not None:
-            regs[current] = int(line.split("Used ")[1].split()[0])
+    for (_, proc), out in zip(procs, outs):
+        if proc.returncode != 0:
+            fail(f"nvcc --resource-usage failed:\n{out}")
+        for line in out.splitlines():
+            current = next(
+                (n for m, n in MANGLED.items() if m in line), current
+            )
+            if "registers" in line and current is not None:
+                regs[current] = int(line.split("Used ")[1].split()[0])
+                current = None
     if set(regs) != set(KERNELS):
         fail(f"ptxas reported registers for {sorted(regs)} only")
     return regs
@@ -198,7 +257,7 @@ def kernel_numbers(name, head, scales, qhead, valid):
     return {
         "name": name,
         "route": "cuda",
-        "source": SOURCE,
+        "source": SOURCE_OF[name],
         "replaces": KERNELS[name],
         "launches": 0,
         "max_abs_err": err,
@@ -381,6 +440,425 @@ def batch_stages(engine, texts, top_k):
     return ms
 
 
+# ----------------------------------------------------------------------
+# Dense path: kernels K5-K8
+# ----------------------------------------------------------------------
+
+
+def reset_all_launches():
+    from osr_tpu_torch.ops import head, matmul, quantize_kernels
+
+    for mod in (head, matmul, quantize_kernels):
+        mod.reset_launches()
+
+
+def all_launches():
+    from osr_tpu_torch.ops import head, matmul, quantize_kernels
+
+    return {**head.LAUNCHES, **matmul.LAUNCHES, **quantize_kernels.LAUNCHES}
+
+
+def exact(name, got, want):
+    """Max |kernel - plain| over every output; fails unless it is 0 and
+    the outputs are bit-equal (NaN-free)."""
+    got, want = (got,) if torch.is_tensor(got) else got, (
+        (want,) if torch.is_tensor(want) else want
+    )
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{name}: kernel gives {g.dtype} {tuple(g.shape)}, plain "
+                 f"{w.dtype} {tuple(w.shape)}")
+        err = max(err, float((g.double() - w.double()).abs().max().item()))
+        if not torch.equal(g, w):
+            fail(f"{name}: kernel and plain differ (max_abs_err {err})")
+    return err
+
+
+def dense_calls(name, args):
+    """(kernel call, plain call) of one dense kernel on ``args``."""
+    from osr_tpu_torch.ops import matmul as M
+    from osr_tpu_torch.ops import quantize_kernels as Q
+
+    if name == "int8_similarity":
+        return (lambda: M.int8_similarity(*args),
+                lambda: M.int8_similarity_plain(*args))
+    if name == "int4_similarity":
+        return (lambda: M.int4_similarity(*args),
+                lambda: M.int4_similarity_plain(*args))
+    if name == "dequantize_symmetric":
+        return (lambda: Q.dequantize_symmetric(*args),
+                lambda: Q.dequantize_symmetric_plain(*args))
+    stochastic = name == "quantize_symmetric_stochastic"
+    return (
+        lambda: Q.quantize_symmetric(args[0], stochastic=stochastic, seed=7),
+        lambda: Q.quantize_symmetric_plain(
+            args[0], stochastic=stochastic, seed=7
+        ),
+    )
+
+
+def dense_bound(name, args):
+    """(operations ms, bytes ms) the card needs at least for one call:
+    each input read once, each output written once; int8 tensor-core
+    operations for the products, the f32 rate outside the tensor cores
+    for the element-wise kernels (4 operations an element to quantize:
+    |x|, max, divide, round; 18 with the stochastic hash and compare; 1 to
+    dequantize)."""
+    if name.endswith("_similarity"):
+        q8, docs, _, _ = args
+        b, d, n = q8.shape[0], q8.shape[1], docs.shape[0]
+        nbytes = b * d + docs.numel() + 4 * (b + n) + 4 * b * n
+        return 2.0 * b * n * d / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    n, d = args[0].shape
+    nbytes = 5 * n * d + 4 * n
+    per = {"quantize_symmetric": 4, "quantize_symmetric_stochastic": 18,
+           "dequantize_symmetric": 1}[name]
+    return per * n * d / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def int_mm_padded(a, b_t):
+    """torch._int_mm(a, b_t.T) with its operands zero-padded to the shapes
+    it takes (rows of a > 16, k and columns multiples of 8); the port never
+    calls it."""
+    m, k = a.shape
+    n = b_t.shape[0]
+    pm, pk, pn = max(17 - m, 0), (-k) % 8, (-n) % 8
+    if pm or pk:
+        a = torch.nn.functional.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b_t = torch.nn.functional.pad(b_t, (0, pk, 0, pn))
+    return torch._int_mm(a, b_t.T)[:m, :n]
+
+
+def dense_library(name, args):
+    """One PyTorch call computing the same function (a yardstick the port
+    never calls), or None: cuBLAS int8 (torch._int_mm) plus the scale
+    multiply for K5, the same on the decoded corpus for K6 (decode not
+    timed), one promoting torch.mul for K8; no single call quantizes per
+    row (K7)."""
+    from osr_tpu_torch.ops.matmul import unpack_int4_signed
+
+    if name == "int8_similarity" or name == "int4_similarity":
+        q8, docs, qs, ds = args
+        if name == "int4_similarity":
+            docs = unpack_int4_signed(docs)
+        return lambda: (
+            int_mm_padded(q8, docs).float() * qs[:, None] * ds[None, :]
+        )
+    if name == "dequantize_symmetric":
+        values, scales = args
+        return lambda: torch.mul(values, scales[:, None])
+    return None
+
+
+def dense_numbers(name, args, plain_reps=3):
+    """Kernel vs plain (error 0) and the times of one dense kernel on the
+    main path's inputs ``args``; returns its record for the JSON line."""
+    kernel, plain = dense_calls(name, args)
+    err = exact(name, kernel(), plain())
+    torch.cuda.synchronize()
+    ms = median_ms(kernel, reps=10)
+    plain_ms = median_ms(plain, reps=plain_reps, warmup=1)
+    lib = dense_library(name, args)
+    library_ms = median_ms(lib, reps=5, warmup=1) if lib else None
+    extra = ""
+    if name.endswith("_similarity"):
+        # cuBLAS's int8 product alone (int32 out, no scales), for scale.
+        from osr_tpu_torch.ops.matmul import unpack_int4_signed
+
+        q8, docs = args[0], args[1]
+        if docs.dtype == torch.uint8:
+            docs = unpack_int4_signed(docs)
+        raw_ms = median_ms(lambda: int_mm_padded(q8, docs), reps=5)
+        extra = f" int_mm_only_ms={raw_ms:.4f}"
+        del docs
+    t_ops, t_bytes = dense_bound(name, args)
+    shape = " x ".join(str(a.shape[0]) for a in args[:2] if a.dim() == 2)
+    log(
+        f"kernel {name}: {shape} (width {args[0].shape[1]}) ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms="
+        f"{'-' if library_ms is None else f'{library_ms:.4f}'}{extra} "
+        f"bound_ms={max(t_ops, t_bytes):.4f} max_abs_err={err:.3e}"
+    )
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCE_OF[name],
+        "replaces": KERNELS[name],
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def dense_small_checks(dev):
+    """K5, K6, K7 (both roundings) and K8 against their plain versions at
+    ragged shapes off every tile: B=37, N=1,000, D=776 (776 % 16 = 8 and
+    388 % 16 = 4 take the byte-load paths); error 0."""
+    rng = np.random.RandomState(9)
+    b, n, d = 37, 1_000, 776
+    q8 = torch.from_numpy(rng.randint(-128, 128, (b, d)).astype(np.int8))
+    d8 = torch.from_numpy(rng.randint(-128, 128, (n, d)).astype(np.int8))
+    d4 = torch.from_numpy(rng.randint(0, 256, (n, d // 2)).astype(np.uint8))
+    qs = torch.from_numpy((rng.rand(b) / 127).astype(np.float32))
+    ds = torch.from_numpy((rng.rand(n) / 127).astype(np.float32))
+    x = torch.from_numpy(
+        (rng.randn(n, d) * rng.rand(n, 1)).astype(np.float32)
+    )
+    x[0] = 0.0
+    v = torch.from_numpy(rng.randint(-127, 128, (n, d)).astype(np.int8))
+    cases = {
+        "int8_similarity": (q8, d8, qs, ds),
+        "int4_similarity": (q8, d4, qs, ds),
+        "quantize_symmetric": (x,),
+        "quantize_symmetric_stochastic": (x,),
+        "dequantize_symmetric": (v, ds),
+    }
+    for name, args in cases.items():
+        args = tuple(a.to(dev) for a in args)
+        kernel, plain = dense_calls(name, args)
+        err = exact(name, kernel(), plain())
+        log(f"small ragged check {name}: B/N={b}/{n} D={d} "
+            f"max_abs_err={err:.3e}")
+
+
+def device_corpus(n, dim, seed, dev):
+    """synthetic_corpus_embeddings' recipe (50 clusters, noise 0.1, unit
+    rows), drawn on the card from a seeded torch.Generator: 768M normals
+    through NumPy would take tens of seconds on the host."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn(50, dim, generator=g, device=dev)
+    assign = torch.randint(0, 50, (n,), generator=g, device=dev)
+    emb = centers[assign]
+    emb.add_(torch.randn(n, dim, generator=g, device=dev), alpha=0.1)
+    emb.div_(emb.norm(dim=1, keepdim=True).clamp_min(1e-8))
+    return emb
+
+
+def dense_pass(engine, queries, top_k):
+    """Every query through dispatch_vectors / collect_vectors in batches
+    of DENSE_BATCH, all batches dispatched before the first is collected;
+    returns (scores, ids) stacked."""
+    handles = [
+        engine.dispatch_vectors(queries[i : i + DENSE_BATCH], top_k)
+        for i in range(0, len(queries), DENSE_BATCH)
+    ]
+    out = [engine.collect_vectors(h) for h in handles]
+    return (np.concatenate([o[0] for o in out]),
+            np.concatenate([o[1] for o in out]))
+
+
+def check_dense_results(scores, ids, n_queries, n_docs):
+    if scores.shape != (n_queries, TOP_K) or ids.shape != (n_queries, TOP_K):
+        fail(f"dense results have shape {scores.shape}/{ids.shape}")
+    if not np.all(np.isfinite(scores)):
+        fail("dense scores are not finite")
+    if np.any(np.diff(scores, axis=1) > 0):
+        fail("dense results are not sorted by descending score")
+    if ids.min() < 0 or ids.max() >= n_docs:
+        fail("dense ids out of range")
+    if np.any([len(set(r)) != len(r) for r in ids[:64]]):
+        fail("a dense result repeats a document")
+
+
+def dense_path(quantization, emb, doc_ids, queries, dev):
+    """The dense main path for one quantization at full width, its checks
+    and numbers. Returns (kernel records, launches of the run, summary)."""
+    from osr_tpu_torch.ops import quantize as qz
+    from osr_tpu_torch.ops import quantize_kernels as Q
+    from osr_tpu_torch.retrieval.engine import (
+        DenseSearchEngine,
+        dense_kernel_step,
+    )
+
+    sim = "int4_similarity" if quantization == "int4" else "int8_similarity"
+    reset_all_launches()
+    t0 = time.perf_counter()
+    eng = DenseSearchEngine(doc_ids, emb, quantization=quantization,
+                            device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores, ids = dense_pass(eng, queries, TOP_K)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_launches()
+    label = f"dense {quantization} {len(doc_ids):,} x {DENSE_DIM}"
+    log(f"{label}: engine built in {build_s:.2f} s (backend {eng.backend}); "
+        f"{len(queries)} queries in {secs:.2f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if eng.backend != "cuda":
+        fail(f"{label}: the engine does not take the CUDA kernels")
+    for k in ("quantize_symmetric", sim):
+        if counts[k] == 0:
+            fail(f"{label} launched no {k}")
+    check_dense_results(scores, ids, len(queries), len(doc_ids))
+    self_hit = float(np.mean(ids[:, 0] == np.arange(len(queries))))
+    log(f"{label}: self-hit rate (top-1 is the query's own row) "
+        f"{self_hit:.4f}")
+    # int8 keeps a row's score against itself far above its cluster
+    # neighbours' (cosine about 0.99); int4's coarser codes blur that
+    # margin, so its rate is reported, not held to a floor.
+    if quantization == "symmetric" and self_hit < 0.99:
+        fail(f"{label}: self-hit rate {self_hit}")
+
+    if quantization == "symmetric":
+        pv, ps = Q.quantize_symmetric_plain(emb)
+        if not (torch.equal(eng._docs, pv) and torch.equal(eng._scales, ps)):
+            fail("the corpus codes differ from the plain quantizer's")
+        del pv, ps
+        log(f"{label}: corpus codes and scales equal the plain quantizer's")
+
+    plain_eng = DenseSearchEngine.from_quantized(
+        doc_ids, eng._docs, eng._scales, quantization=quantization,
+        device="cuda", backend="torch",
+    )
+    sub = queries[:DENSE_CHECK]
+    got, want = eng.search_vectors(sub, TOP_K), plain_eng.search_vectors(
+        sub, TOP_K
+    )
+    if not (np.array_equal(got[1], want[1])
+            and np.array_equal(got[0], want[0])):
+        fail(f"{label}: kernel and backend='torch' engines disagree")
+    log(f"{label}: {DENSE_CHECK} queries give the backend='torch' engine's "
+        "ids and bit-equal scores")
+    del plain_eng
+    torch.cuda.empty_cache()
+
+    # The kernels at the path's shapes, on the path's own inputs.
+    batch = torch.from_numpy(queries[:DENSE_BATCH]).to(dev)
+    q8, qs = qz.quantize_symmetric(batch)
+    rows = [dense_numbers(sim, (q8, eng._docs, qs, eng._scales))]
+    torch.cuda.empty_cache()
+
+    step_ms = median_ms(
+        lambda: dense_kernel_step(batch, eng._docs, eng._scales, TOP_K),
+        reps=10,
+    )
+    passes = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dense_pass(eng, queries, TOP_K)
+        passes.append(len(queries) / (time.perf_counter() - t0))
+    qps = float(np.median(passes))
+    eng.search_vectors(queries[:1], TOP_K)
+    lats = []
+    for i in range(40):
+        t0 = time.perf_counter()
+        eng.search_vectors(queries[i : i + 1], TOP_K)
+        lats.append((time.perf_counter() - t0) * 1e3)
+    busy = len(queries) / DENSE_BATCH * step_ms / (len(queries) / qps * 1e3)
+    log(
+        f"{label}: device step (K7 + {sim} + selection, B={DENSE_BATCH}) "
+        f"{step_ms:.4f} ms; QPS (top_k={TOP_K}, B={DENSE_BATCH}, median of "
+        f"5) {qps:.1f}; passes {[round(p, 1) for p in passes]}; device "
+        f"step share of a pass {busy:.3f}; B=1 latency p50 "
+        f"{np.percentile(lats, 50):.3f} ms, p95 "
+        f"{np.percentile(lats, 95):.3f} ms"
+    )
+    del eng
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def quantization_round_trip(emb):
+    """The op API's round trip (benchmarks/suites.py's quantization
+    suite): quantize and dequantize the corpus, deterministic and
+    stochastic; every reconstruction within one quantization step, the
+    deterministic one within half a step, cosine >= 0.95. Returns (the
+    launches of the run, the deterministic codes and scales)."""
+    from osr_tpu_torch.ops import quantize as qz
+    from osr_tpu_torch.ops import quantize_kernels as Q
+
+    reset_all_launches()
+    values, scales = qz.quantize_symmetric(emb)
+    recon = qz.dequantize_symmetric(values, scales)
+    sv, ss = Q.quantize_symmetric(emb, stochastic=True, seed=7)
+    srecon = Q.dequantize_symmetric(sv, ss)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    # Half a step (one step when stochastic), plus the f32 rounding of
+    # x / scale and of codes x scale: well under 1e-4 step for |code| <= 127.
+    step = scales[:, None]
+    if not bool(((recon - emb).abs() <= (0.5 + 1e-4) * step).all()):
+        fail("round trip: an error above half a step")
+    if not bool(((srecon - emb).abs() <= (1 + 1e-4) * step).all()):
+        fail("round trip: a stochastic error above one step")
+    cos = torch.nn.functional.cosine_similarity(recon, emb, dim=1).min()
+    log(f"quantization round trip {emb.shape[0]:,} x {emb.shape[1]}: "
+        "min cosine "
+        f"{cos.item():.6f}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if cos.item() < 0.95:
+        fail("round trip: cosine below 0.95")
+    for k in ("quantize_symmetric", "quantize_symmetric_stochastic",
+              "dequantize_symmetric"):
+        if counts[k] == 0:
+            fail(f"round trip launched no {k}")
+    return counts, values, scales
+
+
+def dense_phases(dev, bench_docs):
+    """Phases 6 and 7; returns the dense kernels' records."""
+    from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
+    from osr_tpu_torch.retrieval.engine import DenseSearchEngine
+
+    t0 = time.perf_counter()
+    emb = device_corpus(DENSE_DOCS, DENSE_DIM, 3, dev)
+    queries = emb[:DENSE_QUERIES].cpu().numpy()  # corpus rows, as bench.py
+    doc_ids = [f"d{i}" for i in range(DENSE_DOCS)]
+    torch.cuda.synchronize()
+    log(f"dense corpus {DENSE_DOCS} x {DENSE_DIM} drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rows, launches = [], {}
+    for quantization in ("symmetric", "int4"):
+        r, counts = dense_path(quantization, emb, doc_ids, queries, dev)
+        rows += r
+        sim = r[0]["name"]
+        launches[sim] = counts[sim]
+        if quantization == "symmetric":
+            launches["quantize_symmetric"] = counts["quantize_symmetric"]
+
+    counts, values, scales = quantization_round_trip(emb)
+    for k in ("quantize_symmetric_stochastic", "dequantize_symmetric"):
+        launches[k] = counts[k]
+    rows.append(dense_numbers("quantize_symmetric", (emb,)))
+    batch = torch.from_numpy(queries[:DENSE_BATCH]).to(dev)
+    batch_row = dense_numbers("quantize_symmetric", (batch,), plain_reps=5)
+    log(f"kernel quantize_symmetric on one query batch ({DENSE_BATCH} x "
+        f"{DENSE_DIM}): ms={batch_row['ms']:.4f} "
+        f"bound_ms={batch_row['bound_ms']:.4f}")
+    rows.append(dense_numbers("quantize_symmetric_stochastic", (emb,)))
+    rows.append(dense_numbers("dequantize_symmetric", (values, scales)))
+    del emb, values, scales
+    torch.cuda.empty_cache()
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+
+    # For reference: bench.py's own dense shape (its corpus size x 768,
+    # seed 3, the first 4,096 rows as one batch).
+    bemb = synthetic_corpus_embeddings(bench_docs, dim=DENSE_DIM, seed=3)
+    beng = DenseSearchEngine([str(i) for i in range(bench_docs)], bemb,
+                             quantization="symmetric", device="cuda")
+    qv = bemb[:BENCH_DENSE_BATCH]
+    beng.search_vectors(qv, top_k=TOP_K)
+    passes = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        beng.search_vectors(qv, top_k=TOP_K)
+        passes.append(len(qv) / (time.perf_counter() - t0))
+    log(f"dense symmetric at bench.py's shape ({bench_docs} x {DENSE_DIM}, "
+        f"B={BENCH_DENSE_BATCH}, top_k={TOP_K}): QPS median of 5 "
+        f"{float(np.median(passes)):.1f}; passes "
+        f"{[round(p, 1) for p in passes]}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -403,9 +881,10 @@ def main():
     log(f"registers per thread (ptxas): {kernel_registers()}")
     log(f"host runtime: native={native.available()}")
 
-    for name in KERNELS:
+    for name in HEAD_KERNELS:
         err = check_kernel(name, *small_case(name, dev))
         log(f"small ragged check {name}: max_abs_err={err:.3e}")
+    dense_small_checks(dev)
 
     t0 = time.perf_counter()
     corpus = SyntheticDataGenerator(seed=42).zipf_corpus(
@@ -529,6 +1008,12 @@ def main():
         f"B=1 latency (int8, top_k=50): p50 {np.percentile(lats, 50):.3f} ms, "
         f"p95 {np.percentile(lats, 95):.3f} ms"
     )
+    bench_docs = index8.num_docs
+    del eng8, eng4, lat_engine, index8, index4, d, ids, w
+    torch.cuda.empty_cache()
+    log(f"sparse phases done at {time.perf_counter() - t_start:.1f} s")
+
+    rows += dense_phases(dev, bench_docs)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -3,7 +3,9 @@
 Batched, exact top-k BM25/TF-IDF search over the hybrid dense-head /
 postings-tail index, with the head scored on the GPU by hand-written CUDA
 kernels (``csrc/``) and the postings tail and exact merge on the host
-(``index/postings.py`` and the shared C++ runtime in ``native/``).
+(``index/postings.py`` and the shared C++ runtime in ``native/``); and
+quantized dense retrieval (``DenseSearchEngine``), whose query
+quantization and int8/int4 similarity are hand-written CUDA kernels too.
 
 Module names follow ``osr_tpu`` so each part has an obvious counterpart.
 This package imports neither JAX nor ``osr_tpu``. Exports are lazy: ``import
@@ -16,10 +18,12 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {
+    "DenseSearchEngine": "osr_tpu_torch.retrieval.engine",
     "SparseIndex": "osr_tpu_torch.index.builder",
     "SparseIndexBuilder": "osr_tpu_torch.index.builder",
     "SparseSearchEngine": "osr_tpu_torch.retrieval.engine",
     "SyntheticDataGenerator": "osr_tpu_torch.testing",
+    "dense_engine_from_arrays": "osr_tpu_torch.convert",
     "index_from_arrays": "osr_tpu_torch.convert",
     "layout_from_arrays": "osr_tpu_torch.convert",
 }

@@ -1,7 +1,7 @@
 """Carry a built index across from ``osr_tpu``: its arrays become the
-port's :class:`SparseIndex` unchanged, so both engines can serve one
-index. Inputs are plain NumPy arrays and scalars, so this module needs
-neither JAX nor ``osr_tpu``.
+port's :class:`SparseIndex` (or a dense engine's quantized rows)
+unchanged, so both packages can serve one index. Inputs are plain NumPy
+arrays and scalars, so this module needs neither JAX nor ``osr_tpu``.
 
 A bf16 head may arrive as ml_dtypes' bfloat16 array (osr_tpu's host
 representation) or as uint16 bit patterns; the port keeps the bits.
@@ -9,12 +9,14 @@ representation) or as uint16 bit patterns; the port keeps the bits.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from osr_tpu_torch.index.builder import SparseIndex
 from osr_tpu_torch.index.layout import HEAD_DTYPES, HybridLayout
+from osr_tpu_torch.retrieval.engine import DenseSearchEngine
 
 _HEAD_NP = {"int8": np.int8, "int4": np.uint8, "bf16": np.uint16,
             "f32": np.float32}
@@ -125,4 +127,58 @@ def index_from_arrays(
         avgdl=float(avgdl),
         k1=float(k1),
         b=float(b),
+    )
+
+
+_DENSE_NP = {"symmetric": np.int8, "int4": np.uint8, "int4_grouped": np.uint8,
+             "asymmetric": np.uint8, "none": np.float32}
+
+
+def dense_engine_from_arrays(
+    *,
+    doc_ids: Sequence[str],
+    docs: np.ndarray,
+    scales: Optional[np.ndarray],
+    quantization: str,
+    mins: Optional[np.ndarray] = None,
+    score_chunk_rows: Optional[int] = None,
+    device=None,
+    backend: str = "auto",
+) -> DenseSearchEngine:
+    """The port's :class:`DenseSearchEngine` from an ``osr_tpu``
+    ``DenseSearchEngine``'s state: its ``_docs``, ``_scales`` and ``_mins``
+    (or, for a chunked engine, the real rows of its ``_chunks`` in order,
+    with ``score_chunk_rows`` its ``_chunk_rows``), its doc ids and its
+    quantization. Rows past ``len(doc_ids)`` are the zero-scale padding of
+    ``osr_tpu``'s Pallas backend and are dropped."""
+    want = _DENSE_NP.get(quantization)
+    if want is None:
+        raise ValueError(f"Unknown quantization: {quantization}")
+    docs = np.asarray(docs)
+    if docs.dtype != want or docs.ndim != 2:
+        raise ValueError(
+            f"{quantization} rows must be 2-D {np.dtype(want)}, got "
+            f"{docs.dtype} {docs.shape}"
+        )
+    n = len(doc_ids)
+    if docs.shape[0] < n:
+        raise ValueError(f"{docs.shape[0]} rows for {n} doc ids")
+    if (scales is None) != (quantization == "none"):
+        raise ValueError(f"{quantization} rows need scales (and 'none' none)")
+    if (mins is None) != (quantization != "asymmetric"):
+        raise ValueError("asymmetric rows need mins (and only they)")
+
+    def rows(a):
+        if a is None:
+            return None
+        a = np.asarray(a, dtype=np.float32)
+        if a.shape[0] < n:
+            raise ValueError(f"{a.shape[0]} scales or mins for {n} rows")
+        return torch.from_numpy(np.ascontiguousarray(a[:n]))
+
+    dim = docs.shape[1] * (2 if quantization.startswith("int4") else 1)
+    return DenseSearchEngine._from_state(
+        doc_ids, torch.from_numpy(np.ascontiguousarray(docs[:n])),
+        rows(scales), rows(mins), quantization, dim,
+        device=device, backend=backend, score_chunk_rows=score_chunk_rows,
     )

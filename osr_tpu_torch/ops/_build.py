@@ -57,6 +57,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.osr_head_scores.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
         ]
+    elif name == "matmul":
+        lib.osr_similarity.restype = ci
+        lib.osr_similarity.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
+        ]
+    elif name == "quantize":
+        lib.osr_quantize_symmetric.restype = ci
+        lib.osr_quantize_symmetric.argtypes = [
+            vp, vp, vp, ci, ci, ci, ctypes.c_uint, vp,
+        ]
+        lib.osr_dequantize_symmetric.restype = ci
+        lib.osr_dequantize_symmetric.argtypes = [vp, vp, vp, ci, ci, vp]
     lib.osr_cuda_error_string.restype = ctypes.c_char_p
     lib.osr_cuda_error_string.argtypes = [ci]
     return lib

@@ -94,16 +94,24 @@ def decode_head(head: torch.Tensor) -> torch.Tensor:
 
 
 class f32_matmul:
-    """Context in which CUDA float32 matrix products run in full float32
-    (TF32 off), restoring the caller's setting afterwards."""
+    """Context in which CUDA float32 matrix products run in full float32:
+    TF32 off for cuBLAS and cuDNN alike, the caller's settings restored
+    afterwards."""
 
     def __enter__(self):
-        self._saved = torch.backends.cuda.matmul.allow_tf32
+        self._saved = (
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+        )
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         return self
 
     def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = self._saved
+        (
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+        ) = self._saved
         return False
 
 

@@ -1,0 +1,174 @@
+"""Quantized dense similarity: the hand-written Hopper kernels and their
+plain PyTorch versions (counterpart of ``osr_tpu/ops/pallas/matmul.py``).
+
+Both compute the dequantized (B, N) f32 similarity of int8 queries with an
+int8 corpus (K5) or an int4 corpus of signed nibbles (K6):
+``(float(q8 @ d8.T) * q_scales[:, None]) * d_scales[None, :]``, the
+integer sum exact and the two multiplies in that order.
+
+Wrappers, each with its plain version beside it:
+
+- :func:`int8_similarity` launches K5 on a CUDA tensor. Replaces
+  ``osr_tpu/ops/pallas/matmul.py:_kernel`` (via ``int8_similarity_pallas``).
+- :func:`int4_similarity` launches K6. Replaces ``_kernel_i4`` (via
+  ``int4_similarity_pallas``).
+
+One templated CUDA kernel (``csrc/matmul.cu``) serves both. At the dense
+path's shape (B=1,024, N=1,000,000, D=768) on an H100 it is bound by
+bytes: the (B, N) f32 output alone is 4.10 GB, 1.22 ms of the 1.45 ms
+(int8) or 1.34 ms (int4) bound, against 0.79 ms of int8 tensor-core work.
+Design notes at the top of ``csrc/matmul.cu``. The kernel takes every
+width D for int8 and every even D for int4, and masks ragged B, N and D
+itself, so callers pad nothing.
+
+The plain versions compute the integer products in float64, exact while
+the sums stay below 2^53 (PyTorch has no integer matrix product on CUDA).
+A wrapper takes the plain version only for tensors on the CPU; on a CUDA
+tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
+launches (plain calls are not counted).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+LAUNCHES: Dict[str, int] = {
+    "int8_similarity": 0,  # K5
+    "int4_similarity": 0,  # K6
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the reference on the card)
+# ----------------------------------------------------------------------
+
+
+def unpack_int4_signed(packed: torch.Tensor) -> torch.Tensor:
+    """Decode block-packed signed int4 (low nibble of byte c is column c,
+    high nibble column c + W) to (..., 2 W) int8 codes: ``((v & 0xF) ^ 8)
+    - 8`` sign-extends a two's-complement nibble."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = ((p >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, D) x (N, D) integer codes -> (B, N) int32 sums of products,
+    exact (float64 products and sums of 8-bit codes are exact)."""
+    return (a.double() @ b.double().T).to(torch.int32)
+
+
+def int8_similarity_plain(q8, d8, q_scales, d_scales) -> torch.Tensor:
+    """Plain twin of K5: (B, N) f32 ``(acc * q_scales) * d_scales``."""
+    acc = exact_matmul(q8, d8)
+    return acc.float() * q_scales[:, None] * d_scales[None, :]
+
+
+def int4_similarity_plain(q8, d_packed, q_scales, d_scales) -> torch.Tensor:
+    """Plain twin of K6: K5's plain version on the decoded corpus."""
+    return int8_similarity_plain(
+        q8, unpack_int4_signed(d_packed), q_scales, d_scales
+    )
+
+
+# ----------------------------------------------------------------------
+# Kernel wrappers
+# ----------------------------------------------------------------------
+
+
+def _check_operands(q8, docs, q_scales, d_scales, int4: bool) -> None:
+    dev = q8.device
+    for name, t in (("docs", docs), ("q_scales", q_scales),
+                    ("d_scales", d_scales)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q8 on {dev}")
+    want = torch.uint8 if int4 else torch.int8
+    if q8.dtype != torch.int8 or q8.dim() != 2:
+        raise ValueError(
+            f"q8 must be a 2-D int8 tensor, got {q8.dtype} {tuple(q8.shape)}"
+        )
+    if docs.dtype != want or docs.dim() != 2:
+        raise ValueError(
+            f"docs must be a 2-D {want} tensor, got {docs.dtype} "
+            f"{tuple(docs.shape)}"
+        )
+    width = 2 * docs.shape[1] if int4 else docs.shape[1]
+    if width != q8.shape[1]:
+        raise ValueError(
+            f"docs hold {width} logical columns, q8 {q8.shape[1]}"
+        )
+    for name, t, n in (("q_scales", q_scales, q8.shape[0]),
+                       ("d_scales", d_scales, docs.shape[0])):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(
+                f"{name} must be a ({n},) float32 tensor, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+    for name, t in (("q8", q8), ("docs", docs), ("q_scales", q_scales),
+                    ("d_scales", d_scales)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if max(q8.shape[0], docs.shape[0], q8.shape[1]) >= 2**31:
+        raise ValueError("kernel dimensions must fit int32")
+
+
+def _similarity(q8, docs, q_scales, d_scales, int4: bool) -> torch.Tensor:
+    name = "int4_similarity" if int4 else "int8_similarity"
+    if q8.device.type == "cpu":
+        plain = int4_similarity_plain if int4 else int8_similarity_plain
+        return plain(q8, docs, q_scales, d_scales)
+    if q8.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q8.device}")
+    _check_operands(q8, docs, q_scales, d_scales, int4)
+    out = torch.empty(
+        (q8.shape[0], docs.shape[0]), dtype=torch.float32, device=q8.device
+    )
+    if out.numel() == 0:
+        return out
+    from osr_tpu_torch.ops import _build
+
+    lib = _build.library("matmul")
+    with torch.cuda.device(q8.device):
+        code = lib.osr_similarity(
+            q8.data_ptr(),
+            docs.data_ptr(),
+            q_scales.data_ptr(),
+            d_scales.data_ptr(),
+            out.data_ptr(),
+            q8.shape[0],
+            docs.shape[0],
+            q8.shape[1],
+            int(int4),
+            torch.cuda.current_stream(q8.device).cuda_stream,
+        )
+        _build.check(lib, code, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def int8_similarity(
+    q8: torch.Tensor,  # (B, D) int8
+    d8: torch.Tensor,  # (N, D) int8
+    q_scales: torch.Tensor,  # (B,) f32
+    d_scales: torch.Tensor,  # (N,) f32
+) -> torch.Tensor:
+    """(B, N) f32 dequantized similarity of an int8 corpus (K5 on CUDA)."""
+    return _similarity(q8, d8, q_scales, d_scales, int4=False)
+
+
+def int4_similarity(
+    q8: torch.Tensor,  # (B, D) int8
+    d_packed: torch.Tensor,  # (N, D/2) uint8, signed nibbles, block-packed
+    q_scales: torch.Tensor,  # (B,) f32
+    d_scales: torch.Tensor,  # (N,) f32
+) -> torch.Tensor:
+    """(B, N) f32 dequantized similarity of an int4 corpus (K6 on CUDA)."""
+    return _similarity(q8, d_packed, q_scales, d_scales, int4=True)

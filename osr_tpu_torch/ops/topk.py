@@ -26,12 +26,14 @@ def topk(scores: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def block_max(scores: torch.Tensor, block_cols: int = 128) -> torch.Tensor:
     """(B, G) maxima of each ``block_cols``-column block, G = ceil(R /
-    block_cols); columns beyond R count as -inf."""
+    block_cols); columns beyond R count as -inf. A ragged last block is
+    reduced on its own, so the (B, R) matrix is never copied."""
     b, r = scores.shape
-    pad = (-r) % block_cols
-    if pad:
-        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
-    return scores.reshape(b, -1, block_cols).amax(dim=2)
+    full = r - r % block_cols
+    maxima = scores[:, :full].reshape(b, full // block_cols, block_cols).amax(2)
+    if full == r:
+        return maxima
+    return torch.cat([maxima, scores[:, full:].amax(dim=1, keepdim=True)], 1)
 
 
 def block_topk(
@@ -66,19 +68,17 @@ def block_topk_from_max(
     among ties. Returns (values (B, k'), int32 rows (B, k'))."""
     b, r = scores.shape
     kk = min(k, r)
-    pad = (-r) % block_cols
-    if pad:
-        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
-    g = (r + pad) // block_cols
+    g = -(-r // block_cols)
     if maxima.shape[1] != g:
         raise ValueError(f"maxima have {maxima.shape[1]} blocks, expected {g}")
     nb = min(kk, g)
     _, top_blocks = topk(maxima, k=nb)  # (B, nb)
-    xr = scores.reshape(b, g, block_cols)
-    index = top_blocks.long()[:, :, None].expand(b, nb, block_cols)
-    cand = torch.gather(xr, 1, index).reshape(b, nb * block_cols)
+    # Candidate columns of the chosen blocks; lanes past R (a ragged last
+    # block) read column R - 1 and are set to -inf, as padding would be.
+    lanes = torch.arange(block_cols, device=scores.device)
+    cols = (top_blocks.long()[:, :, None] * block_cols + lanes).reshape(b, -1)
+    cand = torch.gather(scores, 1, cols.clamp_max(r - 1))
+    if r % block_cols:
+        cand = cand.masked_fill(cols >= r, float("-inf"))
     vals, pos = topk(cand, k=kk)
-    pos = pos.long()
-    blk = torch.gather(top_blocks.long(), 1, pos // block_cols)
-    rows = blk * block_cols + pos % block_cols
-    return vals, rows.int()
+    return vals, torch.gather(cols, 1, pos.long()).int()

@@ -1,5 +1,8 @@
-"""The sparse search engine on a CUDA device (counterpart of
-``osr_tpu/retrieval/engine.py:SparseSearchEngine``).
+"""The search engines on a CUDA device (counterparts of
+``osr_tpu/retrieval/engine.py:SparseSearchEngine`` and
+``DenseSearchEngine``).
+
+Sparse (BM25/TF-IDF).
 
 Host/device split per batch:
 
@@ -20,6 +23,12 @@ several batches in flight.
 Not yet ported (refused with NotImplementedError rather than rerouted):
 ``topk_mode='approx'``, per-block narrowing (``narrow_m > 0``,
 ``narrow_backend='extract'``) and row-chunked scoring.
+
+Dense (quantized embeddings). :class:`DenseSearchEngine` keeps the
+quantized corpus on the device. One batch is one device step: quantize
+the queries (K7), score them against the corpus (K5 for int8, K6 for
+int4), exact top-k; its result comes back through the same pinned
+buffers and event as the sparse engine's.
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from osr_tpu_torch.index.postings import (
 )
 from osr_tpu_torch.index.tokenizer import Tokenizer
 from osr_tpu_torch.ops import head as head_ops
+from osr_tpu_torch.ops import matmul as matmul_ops
+from osr_tpu_torch.ops import quantize as qz
 from osr_tpu_torch.ops.bm25 import dense_head_scores, fused_search
 from osr_tpu_torch.retrieval.encoding import (
     EncodedBatch,
@@ -108,6 +119,28 @@ class _DeviceIndex:
         self.empty_i32 = torch.zeros(0, dtype=torch.int32, device=device)
 
 
+def _resolve_device(device) -> torch.device:
+    """The engines' device: ``cuda`` unless the caller names another; a
+    CUDA device that is not there raises."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu'")
+    return dev
+
+
+def _upload(arr, device: torch.device) -> torch.Tensor:
+    """Host array (or tensor) -> ``device``. A host array goes through a
+    pinned buffer on CUDA, so the copy does not stall the host."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return src
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    return pinned.to(device, non_blocking=True)
+
+
 class _PendingResult:
     """Device tensors on their way to the host: on CUDA, ``non_blocking``
     copies into pinned buffers followed by a recorded event; on the CPU,
@@ -156,9 +189,7 @@ class SparseSearchEngine:
         cand_filter_per_query: int = 2048,  # defer+filter gate; 0 = off
     ):
         self.index = index
-        self.device = torch.device(device if device is not None else "cuda")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass device='cpu'")
+        self.device = _resolve_device(device)
         self.batch_sizes = tuple(sorted(batch_sizes))
         if topk_mode == "approx":
             raise NotImplementedError(f"topk_mode='approx' {_NOT_PORTED}")
@@ -235,14 +266,7 @@ class SparseSearchEngine:
     # ------------------------------------------------------------------
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> search device, through a pinned buffer on CUDA so
-        the copy does not stall the host."""
-        src = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return src
-        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        pinned.copy_(src)
-        return pinned.to(self.device, non_blocking=True)
+        return _upload(arr, self.device)
 
     def _tail_candidates(self, enc: EncodedBatch, batch_size: int):
         layout = self.index.layout
@@ -483,3 +507,300 @@ class SparseSearchEngine:
         if self._query_cache is not None:
             s["query_cache_size"] = len(self._query_cache)
         return s
+
+
+# ----------------------------------------------------------------------
+# Dense retrieval
+# ----------------------------------------------------------------------
+
+DENSE_QUANTIZATIONS = (
+    "symmetric", "asymmetric", "int4", "int4_grouped", "none"
+)
+KERNEL_QUANTIZATIONS = ("symmetric", "int4")  # the modes K5/K6 score
+
+
+def dense_kernel_step(
+    q: torch.Tensor,  # (B, D) f32 queries
+    docs: torch.Tensor,  # (N, D) int8, or (N, D/2) uint8 int4-packed
+    scales: torch.Tensor,  # (N,) f32
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dense batch through the kernels (counterpart of ``osr_tpu``'s
+    ``_pallas_dense_step``): K7 quantizes the queries, K5 (int8 corpus) or
+    K6 (int4, chosen by the corpus dtype) scores them, and the exact
+    block-pruned selection takes the top k. Returns ((B, k') f32 scores,
+    (B, k') int32 rows), k' = min(k, N).
+
+    The kernels mask ragged B and N, so nothing is padded: the (B, N)
+    similarity covers exactly the real rows (a zero-scale padding row
+    would score 0 and could displace a document scoring below 0)."""
+    q8, qs = qz.quantize_symmetric(q)
+    similarity = (
+        matmul_ops.int4_similarity
+        if docs.dtype == torch.uint8
+        else matmul_ops.int8_similarity
+    )
+    return qz._select_topk(similarity(q8, docs, qs, scales), k)
+
+
+def _dense_backend(backend: str, quantization: str, device) -> str:
+    if backend == "auto":
+        backend = (
+            "cuda"
+            if quantization in KERNEL_QUANTIZATIONS and device.type == "cuda"
+            else "torch"
+        )
+    if backend == "cuda" and not (
+        quantization in KERNEL_QUANTIZATIONS and device.type == "cuda"
+    ):
+        raise ValueError(
+            "backend='cuda' needs symmetric or int4 quantization on a CUDA "
+            f"device (quantization {quantization}, device {device})"
+        )
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"Unknown backend: {backend}")
+    return backend
+
+
+def _rows(t: Optional[torch.Tensor], start: int, stop: int, device):
+    return None if t is None else t[start:stop].to(device).contiguous()
+
+
+class DenseSearchEngine:
+    """Quantized (or f32) dense retrieval on the device.
+
+    ``quantization``: 'symmetric' (int8), 'int4' (signed nibbles, half the
+    bytes), 'int4_grouped' (int4 with per-128-column scales),
+    'asymmetric' (uint8 with a zero offset) or 'none' (f32).
+
+    ``device`` defaults to ``cuda``; pass ``"cpu"`` for the plain path.
+    ``backend``: 'auto' takes the CUDA kernels (K7 + K5/K6,
+    :func:`dense_kernel_step`) for symmetric/int4 on a CUDA device and the
+    plain PyTorch ops otherwise; 'cuda' insists on the kernels; 'torch'
+    runs ``ops/quantize.py``'s search functions on any device (plain
+    products; their query quantizer is still K7 on a CUDA tensor). The
+    kernels take every width (every even width for int4). Results are
+    exact top-k with ties to the lower document row, as ``osr_tpu``'s.
+
+    Doc rows are int32 on the device, so, unlike ``osr_tpu``, neither the
+    corpus nor a score chunk is capped at 2^24 rows."""
+
+    def __init__(
+        self,
+        doc_ids: Sequence[str],
+        embeddings,  # (N, dim) float32: NumPy array or tensor
+        quantization: str = "symmetric",
+        device=None,
+        backend: str = "auto",
+    ):
+        if quantization not in DENSE_QUANTIZATIONS:
+            raise ValueError(f"Unknown quantization: {quantization}")
+        self.doc_ids = list(doc_ids)
+        self.quantization = quantization
+        self.device = _resolve_device(device)
+        self.backend = _dense_backend(backend, quantization, self.device)
+        if embeddings.shape[0] != len(self.doc_ids):
+            raise ValueError(
+                f"{embeddings.shape[0]} embeddings for {len(self.doc_ids)} "
+                "doc ids"
+            )
+        self.dim = int(embeddings.shape[1])
+        self._chunks = None
+        self._mins = None
+        self._doc_names = None
+        # Quantize on the device itself; the staged f32 rows are dropped
+        # when the constructor returns (unless they were the caller's).
+        if not isinstance(embeddings, torch.Tensor):
+            embeddings = np.asarray(embeddings, dtype=np.float32)
+        emb = _upload(embeddings, self.device).float()
+        if quantization == "symmetric":
+            self._docs, self._scales = qz.quantize_symmetric(emb)
+        elif quantization == "int4":
+            self._docs, self._scales = qz.quantize_symmetric_int4(emb)
+        elif quantization == "int4_grouped":
+            self._docs, self._scales = qz.quantize_symmetric_int4_grouped(emb)
+        elif quantization == "asymmetric":
+            self._docs, self._scales, self._mins = qz.quantize_asymmetric(emb)
+        else:
+            self._docs, self._scales = emb.contiguous(), None
+
+    @classmethod
+    def from_quantized(
+        cls,
+        doc_ids: Sequence[str],
+        docs_q,  # int8 (N, D) | uint8 (N, D/2) int4-packed
+        scales,  # (N,) f32 per row, or (N, G) for int4_grouped
+        quantization: str = "symmetric",
+        device=None,
+        backend: str = "auto",
+        score_chunk_rows: Optional[int] = None,
+    ) -> "DenseSearchEngine":
+        """Build from host-pre-quantized rows (``ops/quantize.py``'s NumPy
+        twins): only the packed bytes travel to the device.
+
+        ``score_chunk_rows`` splits the corpus into row chunks, each scored
+        and selected on its own, whose top-k lists merge on the host by
+        descending score, ties to the lower doc id: the (B, N) f32
+        similarity of the whole corpus never exists at once."""
+        docs_q = torch.as_tensor(docs_q)
+        scales = torch.as_tensor(scales, dtype=torch.float32)
+        if quantization == "symmetric":
+            if docs_q.dtype != torch.int8:
+                raise ValueError(f"symmetric rows must be int8: {docs_q.dtype}")
+            dim = docs_q.shape[1]
+        elif quantization in ("int4", "int4_grouped"):
+            if docs_q.dtype != torch.uint8:
+                raise ValueError(f"int4 rows must be uint8: {docs_q.dtype}")
+            dim = 2 * docs_q.shape[1]
+            if quantization == "int4_grouped":
+                if scales.dim() != 2:
+                    raise ValueError(
+                        "int4_grouped needs (N, G) per-group scales "
+                        f"(got shape {tuple(scales.shape)})"
+                    )
+                if dim % scales.shape[1]:
+                    raise ValueError(
+                        f"dim {dim} not divisible by {scales.shape[1]} groups"
+                    )
+        else:
+            raise ValueError(
+                "from_quantized supports symmetric/int4/int4_grouped, "
+                f"got {quantization}"
+            )
+        if len(doc_ids) != docs_q.shape[0] or len(doc_ids) != scales.shape[0]:
+            raise ValueError("doc_ids/rows/scales length mismatch")
+        return cls._from_state(
+            doc_ids, docs_q, scales, None, quantization, dim,
+            device=device, backend=backend,
+            score_chunk_rows=score_chunk_rows,
+        )
+
+    @classmethod
+    def _from_state(
+        cls,
+        doc_ids: Sequence[str],
+        docs: torch.Tensor,
+        scales: Optional[torch.Tensor],
+        mins: Optional[torch.Tensor],
+        quantization: str,
+        dim: int,
+        *,
+        device=None,
+        backend: str = "auto",
+        score_chunk_rows: Optional[int] = None,
+    ) -> "DenseSearchEngine":
+        """An engine over already quantized rows (any quantization),
+        row-chunked when ``score_chunk_rows`` is below the corpus size."""
+        self = cls.__new__(cls)
+        self.doc_ids = list(doc_ids)
+        self.quantization = quantization
+        self.device = _resolve_device(device)
+        self.backend = _dense_backend(backend, quantization, self.device)
+        self.dim = int(dim)
+        self._doc_names = None
+        n = len(self.doc_ids)
+        if score_chunk_rows and n > score_chunk_rows:
+            rows = int(score_chunk_rows)
+            self._chunks = [
+                (
+                    _rows(docs, base, base + rows, self.device),
+                    _rows(scales, base, base + rows, self.device),
+                    _rows(mins, base, base + rows, self.device),
+                    base,
+                )
+                for base in range(0, n, rows)
+            ]
+            self._docs = self._scales = self._mins = None
+        else:
+            self._chunks = None
+            self._docs = _rows(docs, 0, n, self.device)
+            self._scales = _rows(scales, 0, n, self.device)
+            self._mins = _rows(mins, 0, n, self.device)
+        return self
+
+    def _step(self, q, docs, scales, mins, k: int):
+        """One batch against one set of rows: ((B, k') f32, (B, k')
+        int32) on the device."""
+        if self.backend == "cuda":
+            return dense_kernel_step(q, docs, scales, k)
+        if self.quantization == "symmetric":
+            return qz.int8_search_symmetric(q, docs, scales, k=k)
+        if self.quantization == "int4":
+            return qz.int4_search_symmetric(q, docs, scales, k=k)
+        if self.quantization == "int4_grouped":
+            return qz.int4_search_symmetric_grouped(
+                q, docs, scales, k=k, group_size=self.dim // scales.shape[1]
+            )
+        if self.quantization == "asymmetric":
+            return qz.int8_search_asymmetric(q, docs, scales, mins, k=k)
+        return qz.fp_search(q, docs, k=k)
+
+    def dispatch_vectors(self, query_vectors, top_k: int):
+        """Enqueue the device step for (B, dim) f32 query vectors (array or
+        tensor) and start its result copy; returns an in-flight handle for
+        :meth:`collect_vectors` without waiting for the device."""
+        if not isinstance(query_vectors, torch.Tensor):
+            query_vectors = np.asarray(query_vectors, dtype=np.float32)
+        q = _upload(query_vectors, self.device).float()
+        if q.dim() != 2 or q.shape[1] != self.dim:
+            raise ValueError(
+                f"queries must be (B, {self.dim}), got {tuple(q.shape)}"
+            )
+        if self._chunks is None:
+            out = self._step(q, self._docs, self._scales, self._mins, top_k)
+            return (_PendingResult(out, self.device), None, top_k)
+        tensors, bases = [], []
+        for docs, scales, mins, base in self._chunks:
+            tensors += self._step(q, docs, scales, mins, top_k)
+            bases.append(base)
+        return (_PendingResult(tensors, self.device), bases, top_k)
+
+    def collect_vectors(self, in_flight) -> Tuple[np.ndarray, np.ndarray]:
+        """Wait for a :meth:`dispatch_vectors` handle: (scores (B, k) f32,
+        doc rows (B, k) int32). Row chunks merge by descending score,
+        ties to the lower doc row, as one selection over the corpus would
+        order them."""
+        pending, bases, top_k = in_flight
+        arrays = pending.wait()
+        if bases is None:
+            return arrays[0], arrays[1]
+        vals = np.concatenate(arrays[0::2], axis=1)
+        ids = np.concatenate(
+            [a.astype(np.int64) + b for a, b in zip(arrays[1::2], bases)],
+            axis=1,
+        )
+        order = np.lexsort((ids, -vals), axis=1)[:, : min(top_k, vals.shape[1])]
+        return (
+            np.take_along_axis(vals, order, axis=1),
+            np.take_along_axis(ids, order, axis=1).astype(np.int32),
+        )
+
+    def search_vectors(
+        self, query_vectors, top_k: int = 10
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores (B, k), doc rows (B, k)) for (B, dim) f32 query vectors,
+        one device step for the whole batch."""
+        return self.collect_vectors(self.dispatch_vectors(query_vectors, top_k))
+
+    def search(
+        self,
+        query_vectors: Mapping[str, np.ndarray],
+        top_k: int = 10,
+        min_score: float = 0.0,
+    ) -> Dict[str, Dict[str, float]]:
+        """{qid: {doc_id: score}} with scores above ``min_score``, sorted
+        descending."""
+        qids = list(query_vectors.keys())
+        if not qids:
+            return {}
+        batch = np.stack(
+            [np.asarray(query_vectors[q], dtype=np.float32) for q in qids]
+        )
+        scores, ids = self.search_vectors(batch, top_k=top_k)
+        if self._doc_names is None:
+            self._doc_names = as_object_names(self.doc_ids)
+        n = len(self.doc_ids)
+        mask = (scores > min_score) & (ids >= 0) & (ids < n)
+        return dict(
+            zip(qids, assemble_result_dicts(self._doc_names, ids, scores, mask))
+        )

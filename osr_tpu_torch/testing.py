@@ -5,31 +5,11 @@ and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 
-
-def synthetic_corpus_embeddings(
-    num_docs: int,
-    dim: int = 768,
-    seed: int = 42,
-    num_clusters: Optional[int] = None,
-    noise: float = 0.1,
-) -> np.ndarray:
-    """Clustered unit-norm synthetic embeddings (``osr_tpu/index/dense.py``
-    semantics): seeded cluster centers, uniform assignment, Gaussian
-    noise, L2-normalized rows."""
-    rng = np.random.RandomState(seed)
-    if num_clusters is None:
-        num_clusters = max(1, min(50, num_docs // 10))
-    centers = rng.randn(num_clusters, dim).astype(np.float32)
-    assignments = rng.randint(0, num_clusters, num_docs)
-    emb = centers[assignments] + (
-        rng.randn(num_docs, dim).astype(np.float32) * noise
-    )
-    norms = np.linalg.norm(emb, axis=1, keepdims=True)
-    return (emb / np.maximum(norms, 1e-8)).astype(np.float32)
+from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
 
 
 class SyntheticDataGenerator:

@@ -45,3 +45,34 @@ def test_package_import_is_lazy():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "['osr_tpu_torch']"
+
+
+DENSE_PROBE = """
+import sys
+import chip_smoke
+from osr_tpu_torch import DenseSearchEngine, dense_engine_from_arrays
+import osr_tpu_torch.index.dense, osr_tpu_torch.ops.quantize
+import osr_tpu_torch.ops.quantize_kernels, osr_tpu_torch.ops.matmul
+import osr_tpu_torch.testing
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes")
+    or m.startswith(("jax.", "jaxlib.", "osr_tpu."))
+)
+print("LOADED", bad)
+"""
+
+
+def test_dense_modules_import_without_jax_or_osr_tpu():
+    """The dense slice (index/dense.py, ops/quantize*.py, ops/matmul.py,
+    the engine, convert.py) and chip_smoke.py load neither JAX nor
+    osr_tpu."""
+    out = subprocess.run(
+        [sys.executable, "-c", DENSE_PROBE],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
