@@ -9,20 +9,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
    a ragged small shape and at the FiQA bench shape (the main path's own
    inputs), with the tolerance of tests/test_torch_head.py; time each
-   kernel, its plain version and a one-call PyTorch yardstick; hold K5, K6,
-   K7 (both roundings) and K8 against theirs at a ragged shape (B=37,
-   N=1,000, D=776), where the error must be 0;
+   kernel, its plain version and a one-call PyTorch yardstick; hold K4
+   (the per-block top-m extraction, int8 and int4, m in 1, 4, 8) against
+   its plain twin at R=700, F=160, B=9: bit-equal on exact-sum inputs,
+   within the K1-K3 bound on random ones; hold K4 against the stable
+   per-block top-8 of K2's (K3's) own scores at the path shapes, bit for
+   bit; hold K5, K6, K7 (both roundings) and K8 against theirs at a
+   ragged shape (B=37, N=1,000, D=776), where the error must be 0;
 3. drive the sparse main path: the bench.py FiQA-scale corpus (57,638
    docs, 100k-term vocabulary) and its 6,648 queries through
    SparseSearchEngine(device="cuda", batch_sizes=(3328,)) at top_k=50 (K2),
    the same index at top_k=1000 (K1), and an int4 build (K3), counting
-   each kernel's launches in each run;
+   each kernel's launches in each run; then, on each index, the
+   extraction plan (narrow_m=8, narrow_backend='extract': K4), the
+   narrowed plan (narrow_m=8) and topk_mode='approx' (both run the
+   standard block-pruned selection, K2 / K3), whose results must each
+   equal the standard engine's dict for dict;
 4. the merge check on 256 queries: the kernel engine's results match an
    engine whose head step is the plain version, and every real candidate's
    kernel head score is within merge_tau_slack of cand_head_scores_host;
-5. the device step per batch (CUDA events), main-path QPS (median of 5
-   passes), one batch timed stage by stage, and p50 single-query latency;
-6. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
+5. the device step per batch (CUDA events; standard at top_k 50 and 1000,
+   and extraction), main-path QPS (median of 5 passes), one batch timed stage
+   by stage, and p50 single-query latency;
+6. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
+   400,000-term vocabulary, int8 head F=2,048, 2,048 queries at top_k=50,
+   B=2,048, through three engines: (x) extraction in 2 row chunks of
+   500,096 (K4), (s) the standard chunked program (K2), (f) one unchunked
+   sweep (K2). (x) must equal (s) dict for dict, (f) must match (s), and a
+   plain chunked engine must match (f) on 256 queries with the merge
+   slack check; QPS (median of 3), device step per batch, the stage split,
+   and K4 at one chunk against its bound, plain twin and a cuBLAS +
+   torch.topk yardstick;
+7. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
    1,024 at top_k=50, launches counted; the corpus codes equal the plain
@@ -30,7 +48,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bit-equal scores; the self-hit rate; each kernel against its plain
    version at the path's shapes (error 0) with its times; the dense device
    step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
-7. drive the quantization round trip (quantize, dequantize; deterministic
+8. drive the quantization round trip (quantize, dequantize; deterministic
    and stochastic, as benchmarks/suites.py's quantization suite does) on
    the 1M corpus, counting K7 and K8, and time K7 and K8 there; then dense
    QPS at bench.py's own dense shape (the bench corpus size x 768,
@@ -72,6 +90,15 @@ HEAD_KERNELS = {
     "head_blockmax_i8": "osr_tpu/ops/pallas/head.py:208",
     "head_blockmax_i4": "osr_tpu/ops/pallas/head.py:225",
 }
+TOPM_KERNELS = {
+    "head_blocktopm_i8": "osr_tpu/ops/pallas/head.py:372",
+    "head_blocktopm_i4": "osr_tpu/ops/pallas/head.py:372",
+}
+NARROW_M = 8  # the extraction plan's per-block m (tools/bench_scaling.py)
+M1_DOCS = 1_000_000
+M1_VOCAB = 400_000
+M1_QUERIES = 2_048  # one batch of B = 2,048
+M1_CHUNK = 500_000  # score_chunk_rows: 2 chunks of 500,096 rows
 DENSE_KERNELS = {
     "int8_similarity": "osr_tpu/ops/pallas/matmul.py:24",
     "int4_similarity": "osr_tpu/ops/pallas/matmul.py:36",
@@ -79,9 +106,9 @@ DENSE_KERNELS = {
     "quantize_symmetric_stochastic": "osr_tpu/ops/pallas/quantize.py:32",
     "dequantize_symmetric": "osr_tpu/ops/pallas/quantize.py:115",
 }
-KERNELS = {**HEAD_KERNELS, **DENSE_KERNELS}
+KERNELS = {**HEAD_KERNELS, **TOPM_KERNELS, **DENSE_KERNELS}
 SOURCES = {
-    "head.cu": HEAD_KERNELS,
+    "head.cu": (*HEAD_KERNELS, *TOPM_KERNELS),
     "matmul.cu": ("int8_similarity", "int4_similarity"),
     "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
                     "dequantize_symmetric"),
@@ -90,9 +117,11 @@ SOURCE_OF = {k: f"osr_tpu_torch/csrc/{src}" for src, ks in SOURCES.items()
              for k in ks}
 # ptxas function-name fragments of the instantiations the paths launch.
 MANGLED = {
-    "head_scores_kernelILb0ELb0E": "head_scores_i8",
-    "head_scores_kernelILb0ELb1E": "head_blockmax_i8",
-    "head_scores_kernelILb1ELb1E": "head_blockmax_i4",
+    "head_scores_kernelILb0ELi0E": "head_scores_i8",
+    "head_scores_kernelILb0ELi1E": "head_blockmax_i8",
+    "head_scores_kernelILb1ELi1E": "head_blockmax_i4",
+    "head_scores_kernelILb0ELi2E": "head_blocktopm_i8",
+    "head_scores_kernelILb1ELi2E": "head_blocktopm_i4",
     "similarity_kernelILb0ELb1E": "int8_similarity",
     "similarity_kernelILb1ELb1E": "int4_similarity",
     "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
@@ -190,6 +219,18 @@ def kernel_call(name, head, scales, qhead, valid, plain=False):
     return fn(head, scales, qhead, valid)
 
 
+def score_bound(head, scales, qhead):
+    """(B, R) f32 bound on |kernel - plain| per score: 4 F 2^-24 sum_j
+    |q_j w_rj| (f32 summation order; the products are exact on both
+    sides)."""
+    from osr_tpu_torch.ops import head as H
+
+    q = H.scaled_query(qhead, scales, H.logical_width(head)).float()
+    with H.f32_matmul():
+        mag = q.abs() @ H.decode_head(head).abs().T
+    return mag.mul_(4 * q.shape[1] * 2.0**-24)
+
+
 def check_kernel(name, head, scales, qhead, valid):
     """Kernel vs plain on the same card inputs. Per entry, |kernel - plain|
     <= 4 F 2^-24 sum_j |q_j w_ij| (f32 summation order; the products are
@@ -200,10 +241,7 @@ def check_kernel(name, head, scales, qhead, valid):
     got, gmax = kernel_call(name, head, scales, qhead, valid)
     want, _ = kernel_call(name, head, scales, qhead, valid, plain=True)
     torch.cuda.synchronize()
-    q = H.scaled_query(qhead, scales, H.logical_width(head)).float()
-    with H.f32_matmul():
-        mag = q.abs() @ H.decode_head(head).abs().T
-    bound = 4 * q.shape[1] * 2.0**-24 * mag
+    bound = score_bound(head, scales, qhead)
     ok = valid[None, :].expand_as(got)
     if not torch.all(got[~ok] == float("-inf")):
         fail(f"{name}: masked entries are not -inf")
@@ -291,18 +329,181 @@ def small_case(name, dev):
     ]
 
 
-def bench_case(engine, texts):
-    """The main path's own kernel inputs for one batch of queries."""
+def blocktopm_case(dtype, exact_sum, dev, b=9, r=700, f=160, seed=7):
+    """K4's small inputs: R off the 128-row tile (a ragged last block),
+    B off the 128-query tile, invalid rows. Exact-sum inputs (power-of-two
+    column scales, integer query counts, codes from a few levels) make
+    every dot exact in f32 whatever the summation order, and hold many
+    real ties."""
+    rng = np.random.RandomState(seed)
+    lo, hi = ((-2, 3) if exact_sum else (-127, 128)) if dtype == "int8" else (
+        (0, 3) if exact_sum else (0, 16)
+    )
+    codes = rng.randint(lo, hi, (r, f))
+    if dtype == "int8":
+        head = codes.astype(np.int8)
+    else:  # block-packed: byte c holds columns c and f/2 + c
+        codes = codes.astype(np.uint8)
+        head = codes[:, : f // 2] | (codes[:, f // 2 :] << 4)
+    if exact_sum:
+        scales = (2.0 ** -rng.randint(2, 6, f)).astype(np.float32)
+        qhead = rng.randint(1, 3, (b, f)) * (rng.rand(b, f) < 0.05)
+    else:
+        scales = ((rng.rand(f) + 0.1) / 127.0).astype(np.float32)
+        qhead = rng.randint(0, 4, (b, f))
+    if dtype == "int4":  # the int4 head keeps its sign in the scale
+        scales *= np.where(rng.rand(f) < 0.3, -1.0, 1.0).astype(np.float32)
+    valid = rng.rand(r) > 0.1
+    return [
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (head, scales, qhead.astype(np.float32), valid)
+    ]
+
+
+def check_blocktopm(head, scales, qhead, valid, m, exact_sum):
+    """K4 vs its plain twin on the same card inputs. Exact-sum inputs:
+    values bit-equal, rows equal wherever the value is finite (the row of
+    a -inf value is unspecified, as in osr_tpu). Otherwise each value
+    within the K1-K3 tolerance (the largest score_bound of the batch: a
+    rank's value moves by at most the largest score error), and the plain
+    score of each kernel row within twice it of the plain value at its
+    rank (a near-tie may swap two rows). Returns max |kernel - plain|."""
+    from osr_tpu_torch.ops import head as H
+
+    got_v, got_r = H.masked_head_blocktopm(head, scales, qhead, valid, m=m)
+    want_v, want_r = H.masked_head_blocktopm_plain(
+        head, scales, qhead, valid, m
+    )
+    torch.cuda.synchronize()
+    what = f"K4 {'int4' if head.dtype == torch.uint8 else 'int8'} m={m}"
+    finite = torch.isfinite(want_v)
+    if not torch.equal(torch.isfinite(got_v), finite):
+        fail(f"{what}: -inf entries differ from the plain twin's")
+    if exact_sum:
+        if not (
+            torch.equal(got_v, want_v)
+            and torch.equal(got_r[finite], want_r[finite])
+        ):
+            fail(f"{what}: not bit-equal to the plain twin on exact sums")
+        return 0.0
+    tol = score_bound(head, scales, qhead).max().item()
+    err = (got_v - want_v)[finite].abs().max().item() if finite.any() else 0
+    if not err <= tol:
+        fail(f"{what}: value error {err} over the tolerance {tol}")
+    b, r = qhead.shape[0], head.shape[0]
+    plain = H.masked_head_scores_plain(head, scales, qhead, valid)
+    at = plain.gather(1, got_r.reshape(b, -1).long().clamp_max(r - 1))
+    gap = (at.view_as(got_v) - want_v)[finite].abs()
+    if gap.numel() and not gap.max().item() <= 2 * tol:
+        fail(f"{what}: a row's score is {gap.max().item()} off its rank")
+    return float(err)
+
+
+def blocktopm_is_topm_of_blockmax(head, scales, qhead, valid, m=NARROW_M):
+    """K4's (values, rows) equal the stable per-block top-m of K2's (K3's)
+    own scores on the same inputs, bit for bit: the kernels share their
+    main loop."""
+    from osr_tpu_torch.ops import head as H
+    from osr_tpu_torch.ops.topk import block_topm
+
+    scores, _ = H.masked_head_scores_blockmax(head, scales, qhead, valid)
+    want_v, want_r = block_topm(scores, m)
+    del scores
+    got_v, got_r = H.masked_head_blocktopm(head, scales, qhead, valid, m=m)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_v, want_v) and torch.equal(got_r, want_r)):
+        fail(f"K4 is not the per-block top-{m} of K2/K3's scores at B="
+             f"{qhead.shape[0]}, R={head.shape[0]}")
+
+
+def blocktopm_numbers(name, head, scales, qhead, valid, m=NARROW_M):
+    """K4's error, times and bound at a path shape. The yardstick (never
+    called by the port): one cuBLAS bf16 product of the upcast head, the
+    mask, and torch.topk of each 128-row block."""
+    from osr_tpu_torch.ops import head as H
+
+    err = check_blocktopm(head, scales, qhead, valid, m, exact_sum=False)
+    torch.cuda.empty_cache()
+    ms = median_ms(
+        lambda: H.masked_head_blocktopm(head, scales, qhead, valid, m=m),
+        reps=10,
+    )
+    plain_ms = median_ms(
+        lambda: H.masked_head_blocktopm_plain(head, scales, qhead, valid, m),
+        reps=3, warmup=1,
+    )
+    torch.cuda.empty_cache()
+    hb = H.decode_head(head).to(torch.bfloat16)
+    q = H.scaled_query(qhead, scales, hb.shape[1])
+    b, r, width = q.shape[0], head.shape[0], q.shape[1]
+    g = r // H.ROW_TILE
+    not_valid = ~valid
+    library_ms = median_ms(
+        lambda: torch.topk(
+            torch.matmul(q, hb.T)
+            .masked_fill_(not_valid, float("-inf"))
+            .view(b, g, H.ROW_TILE),
+            m,
+        ),
+        reps=5,
+    )
+    del hb
+    torch.cuda.empty_cache()
+    flops = 2.0 * b * r * width
+    nbytes = (
+        head.numel() * head.element_size() + q.numel() * 2 + r
+        + 2 * 4 * b * g * m
+    )
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(
+        f"kernel {name}: B={b} R={r} F={width} m={m} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={max(t_ops, t_bytes):.4f} (bytes {t_bytes:.4f}) "
+        f"max_abs_err={err:.3e} TFLOP/s={flops / ms / 1e9:.1f}"
+    )
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCE_OF[name],
+        "replaces": KERNELS[name],
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def blocktopm_small_checks(dev):
+    """K4 against its plain twin at R=700, F=160, B=9, int8 and int4, m in
+    1, 4, 8: bit-equal on exact sums, within the bound on random inputs."""
+    for dtype in ("int8", "int4"):
+        for m in (1, 4, NARROW_M):
+            for exact_sum in (True, False):
+                err = check_blocktopm(
+                    *blocktopm_case(dtype, exact_sum, dev), m, exact_sum
+                )
+                log(f"small ragged check K4 {dtype} m={m} "
+                    f"{'exact-sum' if exact_sum else 'random'}: "
+                    f"max_abs_err={err:.3e}")
+
+
+def bench_case(engine, texts, chunk=None):
+    """The main path's own kernel inputs for one batch of queries: the
+    engine's head, or one of its row chunks."""
     from osr_tpu_torch.ops.bm25 import scatter_query_head
 
     d = engine._dev
+    head, valid = (d.head, d.valid) if chunk is None else d.chunks[chunk]
     enc = engine.encode_queries(texts)
     ids = torch.from_numpy(enc.head_ids).to(engine.device)
     w = torch.from_numpy(enc.head_weights).to(engine.device)
     qhead = scatter_query_head(
         ids, w, head_terms=engine.index.layout.head_terms
     )
-    return d.head, d.head_scales, qhead, d.valid
+    return head, d.head_scales, qhead, valid
 
 
 # ----------------------------------------------------------------------
@@ -397,11 +598,25 @@ def merge_check(engine, plain_engine, queries):
     return n
 
 
+def device_step(engine, ids, w, top_k):
+    """The engine's own device step for one batch: (top, rows, flag or
+    None), chunked or not, extraction where the engine takes it."""
+    d = engine._dev
+    if d.chunks is not None:
+        return engine._dispatch_chunked(
+            ids, w, top_k, engine._use_extract_chunked(top_k)
+        )
+    top, rows, unsafe, _ = engine._sweep(
+        ids, w, d.head, d.valid, top_k, engine._use_extract(top_k)
+    )
+    return top, rows, unsafe
+
+
 def batch_stages(engine, texts, top_k):
     """Wall time (ms) of each stage of one batch, run one after another
-    (inside search() the candidate head dots overlap the device step)."""
+    (inside search() the candidate head dots overlap the device step, or
+    wait for it where the candidate filter applies)."""
     from osr_tpu_torch.index import postings as P
-    from osr_tpu_torch.ops.bm25 import fused_search
 
     d = engine._dev
     ms = {}
@@ -417,20 +632,27 @@ def batch_stages(engine, texts, top_k):
     lap("encode")
     cand = engine._tail_candidates(enc, enc.head_ids.shape[0])
     lap("tail_walk")
-    top, rows, _ = fused_search(
-        engine._upload(enc.head_ids), engine._upload(enc.head_weights),
-        d.empty_i32, d.empty_i32, d.head, d.head_scales, d.valid,
-        head_terms=engine.index.layout.head_terms, k=top_k,
-        head_backend=engine.head_backend,
+    top, rows, _ = device_step(
+        engine, engine._upload(enc.head_ids),
+        engine._upload(enc.head_weights), top_k,
     )
     top, rows = top.cpu().numpy(), rows.cpu().numpy()
     lap("device_step_and_copy")
-    cand_head = engine._cand_head_host(cand, enc)
-    lap("cand_head_dots")
     slack = P.merge_tau_slack(
         engine._slack_per_term, enc.head_flat_ids, enc.head_flat_counts,
         enc.head_ptr,
     )
+    nq = max(1, len(enc.head_ptr) - 1)
+    if (
+        engine.cand_filter_per_query
+        and cand.total >= engine.cand_filter_per_query * nq
+    ):
+        cand = P.filter_candidates_by_tau(
+            cand, top, rows, top_k, slack, d.num_rows
+        )
+        lap("tau_filter")
+    cand_head = engine._cand_head_host(cand, enc)
+    lap("cand_head_dots")
     scores, ids = P.merge_host(
         top, rows, cand, cand_head, d.num_rows, top_k, tau_slack=slack
     )
@@ -438,6 +660,184 @@ def batch_stages(engine, texts, top_k):
     engine._result_dicts(scores, ids)
     lap("result_dicts")
     return ms
+
+
+def median_stages(engine, texts, top_k, runs=3):
+    out = [batch_stages(engine, texts, top_k) for _ in range(runs)]
+    return {k: float(np.median([r[k] for r in out])) for k in out[0]}
+
+
+# ----------------------------------------------------------------------
+# More plans: extraction (K4), narrowing, approx; the 1M path
+# ----------------------------------------------------------------------
+
+
+def fiqa_plans(index, base, queries, dtype):
+    """The extraction, narrowed and approx plans on one FiQA-scale index,
+    each equal to ``base`` (the standard engine's results at top_k=50)
+    dict for dict. Returns K4's launches in the extraction run."""
+    from osr_tpu_torch.retrieval.engine import SparseSearchEngine
+
+    topm = "head_blocktopm_i4" if dtype == "int4" else "head_blocktopm_i8"
+    scores_kernel = "head_blockmax_i4" if dtype == "int4" else "head_blockmax_i8"
+    kw = dict(device="cuda", batch_sizes=(BATCH,), cache_queries=False)
+    ex = SparseSearchEngine(
+        index, narrow_m=NARROW_M, narrow_backend="extract", **kw
+    )
+    if not ex._use_extract(TOP_K):
+        fail(f"{dtype}: the extraction plan does not apply at FiQA scale")
+    results, counts = counted_search(ex, queries, TOP_K)
+    if results != base:
+        fail(f"{dtype} extraction: results differ from the standard "
+             "engine's")
+    if counts[topm] == 0:
+        fail(f"{dtype} extraction launched no {topm}")
+    log(f"{dtype} extraction (narrow_m={NARROW_M}): results equal the "
+        f"standard engine's dict for dict; launches {counts}; tie-safety "
+        f"re-runs {ex.stats()['extract_redispatches']}")
+    for label, plan in ((f"narrow_m={NARROW_M}", {"narrow_m": NARROW_M}),
+                        ("topk_mode='approx'", {"topk_mode": "approx"})):
+        eng = SparseSearchEngine(index, **plan, **kw)
+        results, pcounts = counted_search(eng, queries, TOP_K)
+        if results != base:
+            fail(f"{dtype} {label}: results differ from the standard "
+                 "engine's")
+        if pcounts[scores_kernel] == 0:
+            fail(f"{dtype} {label} launched no {scores_kernel}")
+        log(f"{dtype} {label}: results equal the standard engine's dict "
+            f"for dict; launches {pcounts}")
+    return counts[topm]
+
+
+def million_path(dev):
+    """Phase 6. Returns K4-i8's record, its launches from the (x) run."""
+    from osr_tpu_torch.index.builder import SparseIndexBuilder
+    from osr_tpu_torch.ops import head as H
+    from osr_tpu_torch.retrieval.engine import SparseSearchEngine
+    from osr_tpu_torch.testing import SyntheticDataGenerator
+
+    t0 = time.perf_counter()
+    gen = SyntheticDataGenerator(seed=42)
+    queries = gen.queries(
+        M1_QUERIES, M1_VOCAB, avg_terms=11, word_prefix="t", min_terms=2
+    )
+    corpus = gen.zipf_corpus(
+        M1_DOCS, M1_VOCAB, avg_len=130, word_prefix="t", min_len=5
+    )
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = SparseIndexBuilder(head_dtype="int8").build(corpus)
+    build_s = time.perf_counter() - t0
+    del corpus
+    lay = index.layout
+    log(f"1M: corpus generated in {gen_s:.1f} s, index built in "
+        f"{build_s:.1f} s (host): {lay.num_rows} rows, F={lay.head_terms}, "
+        f"int8 head {lay.head.nbytes / 1e9:.3f} GB")
+
+    kw = dict(device="cuda", batch_sizes=(M1_QUERIES,), cache_queries=False)
+    t0 = time.perf_counter()
+    eng = {
+        "x": SparseSearchEngine(
+            index, narrow_m=NARROW_M, narrow_backend="extract",
+            score_chunk_rows=M1_CHUNK, **kw,
+        ),
+        "s": SparseSearchEngine(index, score_chunk_rows=M1_CHUNK, **kw),
+        "f": SparseSearchEngine(index, score_chunk_rows=0, **kw),
+    }
+    log(f"1M: three engines built in {time.perf_counter() - t0:.1f} s; "
+        f"device memory allocated {torch.cuda.memory_allocated() / 1e9:.3f} "
+        "GB")
+    for key in ("x", "s"):
+        if eng[key].stats().get("score_chunks") != 2:
+            fail(f"1M ({key}): {eng[key].stats().get('score_chunks')} score "
+                 "chunks, not 2")
+    if eng["f"]._dev.chunks is not None:
+        fail("1M (f): the unchunked engine is chunked")
+    if not eng["x"]._use_extract_chunked(TOP_K):
+        fail("1M (x): the extraction plan does not apply")
+    results, counts = {}, {}
+    for key, kernel in (("x", "head_blocktopm_i8"), ("s", "head_blockmax_i8"),
+                        ("f", "head_blockmax_i8")):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results[key], counts[key] = counted_search(eng[key], queries, TOP_K)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        nonempty = check_results(results[key], queries, TOP_K)
+        log(f"1M ({key}): {len(queries)} queries in {secs:.2f} s, "
+            f"{nonempty} non-empty, launches {counts[key]}; device memory "
+            f"above the resident heads at peak {peak / 1e9:.3f} GB")
+        if counts[key][kernel] == 0:
+            fail(f"1M ({key}) launched no {kernel}")
+    if results["x"] != results["s"]:
+        fail("1M: extraction results differ from the standard chunked "
+             "engine's")
+    if not same_results(results["f"], results["s"]):
+        fail("1M: the unchunked engine's results differ from the chunked")
+    log("1M: (x) equals (s) dict for dict; (f) matches (s); tie-safety "
+        f"re-runs in (x): {eng['x'].stats()['extract_redispatches']}")
+    plain = SparseSearchEngine(
+        index, head_backend="torch", score_chunk_rows=M1_CHUNK, **kw
+    )
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain.search(dict(list(queries.items())[:MERGE_QUERIES]), top_k=TOP_K)
+    peak = torch.cuda.max_memory_allocated() - before
+    n = merge_check(eng["f"], plain, queries)
+    log(f"1M merge check: the plain chunked engine matches (f) on "
+        f"{MERGE_QUERIES} queries; {n} candidates within merge_tau_slack; "
+        f"the plain engine's peak above the resident heads {peak / 1e9:.3f} "
+        "GB")
+    del plain
+    torch.cuda.empty_cache()
+
+    texts = list(queries.values())
+    enc = eng["x"].encode_queries(texts)
+    ids = torch.from_numpy(enc.head_ids).to(dev)
+    w = torch.from_numpy(enc.head_weights).to(dev)
+    step = {
+        key: median_ms(lambda e=e: device_step(e, ids, w, TOP_K), reps=5)
+        for key, e in eng.items()
+    }
+    qps = {}
+    for key, e in eng.items():
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            e.search(queries, top_k=TOP_K)
+            passes.append(len(queries) / (time.perf_counter() - t0))
+        qps[key] = float(np.median(passes))
+        log(f"1M ({key}): device step {step[key]:.4f} ms per batch; QPS "
+            f"(top_k={TOP_K}, B={M1_QUERIES}, median of 3) {qps[key]:.1f}; "
+            f"passes {[round(p, 1) for p in passes]}; device step share of "
+            f"a pass {step[key] / (len(queries) / qps[key] * 1e3):.3f}")
+    for key in ("x", "s"):
+        stages = median_stages(eng[key], texts, TOP_K)
+        log(f"1M ({key}) one batch stage by stage (ms, median of 3): "
+            f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+            f"sum {sum(stages.values()):.3f}")
+    del eng["s"], eng["f"]
+    torch.cuda.empty_cache()
+
+    # K4 and K2 at one 1M chunk, on the path's own inputs.
+    head, scales, qhead, valid = bench_case(eng["x"], texts, chunk=0)
+    blocktopm_is_topm_of_blockmax(head, scales, qhead, valid)
+    log(f"1M chunk: K4 equals the per-block top-{NARROW_M} of K2's scores "
+        "bit for bit")
+    torch.cuda.empty_cache()
+    k2_ms = median_ms(
+        lambda: H.masked_head_scores_blockmax(head, scales, qhead, valid),
+        reps=5,
+    )
+    log(f"kernel head_blockmax_i8 at one 1M chunk (B={qhead.shape[0]}, "
+        f"R={head.shape[0]}): ms={k2_ms:.4f}")
+    torch.cuda.empty_cache()
+    row = blocktopm_numbers("head_blocktopm_i8", head, scales, qhead, valid)
+    row["launches"] = counts["x"]["head_blocktopm_i8"]
+    del eng, index, head, scales, qhead, valid, ids, w
+    torch.cuda.empty_cache()
+    return row
 
 
 # ----------------------------------------------------------------------
@@ -866,7 +1266,7 @@ def main():
     from osr_tpu_torch import native
     from osr_tpu_torch.index.builder import SparseIndexBuilder
     from osr_tpu_torch.ops import _build
-    from osr_tpu_torch.ops.bm25 import fused_search
+    from osr_tpu_torch.ops.bm25 import fused_search, fused_search_extract
     from osr_tpu_torch.retrieval.engine import SparseSearchEngine
     from osr_tpu_torch.testing import SyntheticDataGenerator
 
@@ -884,6 +1284,7 @@ def main():
     for name in HEAD_KERNELS:
         err = check_kernel(name, *small_case(name, dev))
         log(f"small ragged check {name}: max_abs_err={err:.3e}")
+    blocktopm_small_checks(dev)
     dense_small_checks(dev)
 
     t0 = time.perf_counter()
@@ -922,9 +1323,21 @@ def main():
     ):
         rows.append(kernel_numbers(name, *bench_case(eng, texts)))
         torch.cuda.empty_cache()
+    for dtype, eng in (("int8", eng8), ("int4", eng4)):
+        blocktopm_is_topm_of_blockmax(*bench_case(eng, texts))
+        log(f"FiQA shape {dtype}: K4 equals the per-block top-{NARROW_M} "
+            "of K2/K3's scores bit for bit")
+    # K4-i8 here for comparison with K2 at one shape; its row comes from
+    # the 1M path.
+    blocktopm_numbers("head_blocktopm_i8", *bench_case(eng8, texts))
+    rows.append(
+        blocktopm_numbers("head_blocktopm_i4", *bench_case(eng4, texts))
+    )
+    torch.cuda.empty_cache()
     by_name = {r["name"]: r for r in rows}
 
     # The main path, and the two paths that reach K1 and K3.
+    base = {}
     for label, eng, k, kernel in (
         ("main path int8 top_k=50", eng8, TOP_K, "head_blockmax_i8"),
         ("int8 top_k=1000", eng8, DEEP_K, "head_scores_i8"),
@@ -941,6 +1354,12 @@ def main():
         if counts[kernel] == 0:
             fail(f"{label} launched no {kernel}")
         by_name[kernel]["launches"] = counts[kernel]
+        base[label] = results
+    fiqa_plans(index8, base["main path int8 top_k=50"], queries, "int8")
+    by_name["head_blocktopm_i4"]["launches"] = fiqa_plans(
+        index4, base["int4 top_k=50"], queries, "int4"
+    )
+    del base
 
     plain8 = SparseSearchEngine(
         index8, device="cuda", batch_sizes=(BATCH,), cache_queries=False,
@@ -974,6 +1393,16 @@ def main():
             reps=10,
         )
         log(f"device step int8 top_k={k}, B={BATCH}: {step_ms[k]:.4f} ms")
+    extract_ms = median_ms(
+        lambda: fused_search_extract(
+            ids, w, d.head, d.head_scales, d.valid,
+            head_terms=index8.layout.head_terms, k=TOP_K, narrow_m=NARROW_M,
+            head_backend="cuda",
+        ),
+        reps=10,
+    )
+    log(f"device step int8 top_k={TOP_K}, B={BATCH}, extraction (K4): "
+        f"{extract_ms:.4f} ms")
 
     passes = []
     for _ in range(5):
@@ -987,11 +1416,10 @@ def main():
         f"{qps:.1f}; passes {[round(p, 1) for p in passes]}; device step "
         f"share of a pass {busy:.3f}"
     )
-    runs = [batch_stages(eng8, texts, TOP_K) for _ in range(3)]
-    stages = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    stages = median_stages(eng8, texts, TOP_K)
     log(
-        "one batch stage by stage (int8, top_k=50, B=3328, ms, median of "
-        f"3): {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+        f"one batch stage by stage (int8, top_k={TOP_K}, B={BATCH}, ms, median "
+        f"of 3): {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
         f"sum {sum(stages.values()):.3f}"
     )
     lat_engine = SparseSearchEngine(
@@ -1012,6 +1440,9 @@ def main():
     del eng8, eng4, lat_engine, index8, index4, d, ids, w
     torch.cuda.empty_cache()
     log(f"sparse phases done at {time.perf_counter() - t_start:.1f} s")
+
+    rows.append(million_path(dev))
+    log(f"1M path done at {time.perf_counter() - t_start:.1f} s")
 
     rows += dense_phases(dev, bench_docs)
     log(f"total {time.perf_counter() - t_start:.1f} s")

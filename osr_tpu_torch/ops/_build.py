@@ -57,6 +57,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.osr_head_scores.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
         ]
+        lib.osr_head_blocktopm.restype = ci
+        lib.osr_head_blocktopm.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+        ]
     elif name == "matmul":
         lib.osr_similarity.restype = ci
         lib.osr_similarity.argtypes = [

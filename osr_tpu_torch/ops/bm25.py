@@ -10,13 +10,17 @@ exactness of that split is argued in :func:`fused_search`.
 Head scoring per head dtype:
 
 - int8 / int4: on a CUDA device the hand-written kernels of
-  ``ops/head.py`` (K1, K2, K3); elsewhere, or with ``head_backend='torch'``,
-  their plain PyTorch versions.
+  ``ops/head.py`` (K1, K2, K3, and K4 for :func:`fused_search_extract`);
+  elsewhere, or with ``head_backend='torch'``, their plain PyTorch
+  versions.
 - bf16 / f32: a plain float32 product on every device (TF32 off), as
   ``osr_tpu`` runs XLA there; no Pallas kernel exists for these modes.
 
-Rows travel as int32 tensors and results leave the device through the
-engine's pinned buffers; nothing here packs rows into floats.
+The selections: exact and block-pruned (which also serves ``osr_tpu``'s
+narrowed and ``approx`` modes, see :func:`fused_search`), the extraction
+path and the merge of row chunks (:func:`merge_chunks`). Rows travel as
+int32 tensors and results leave the device through the engine's pinned
+buffers; nothing here packs rows into floats.
 """
 
 from __future__ import annotations
@@ -26,13 +30,24 @@ from typing import Optional, Tuple
 import torch
 
 from osr_tpu_torch.ops import head as head_ops
-from osr_tpu_torch.ops.topk import block_max, block_topk_from_max, topk
+from osr_tpu_torch.ops.topk import (
+    block_max,
+    block_topk_from_max,
+    blocktopm_topk,
+    topk,
+)
 
 NEG_INF = float("-inf")
 
 # Block-pruned selection pays off only where the head has many more
 # 128-row blocks than the k it must keep (osr_tpu/ops/bm25.py:189-191).
 BLOCK_PRUNE_MIN_ROWS = 4096
+
+
+def block_prune_applies(rows: int, k: int) -> bool:
+    """Whether the block-pruned selection (and the extraction kernel) runs
+    for ``rows`` head rows at depth ``k``."""
+    return rows >= BLOCK_PRUNE_MIN_ROWS and rows // 128 > 2 * min(k, rows)
 
 
 def scatter_query_head(
@@ -104,6 +119,12 @@ def fused_search(
     scores an int8/int4 head on a CUDA device with the kernels, 'torch'
     with the plain version (the engine chooses).
 
+    The selection is the exact block-pruned one wherever it applies
+    (:func:`block_prune_applies`), else one exact sort. ``osr_tpu``'s
+    narrowed selection (``narrow_m``) is bit-identical to it, and its
+    ``approx`` mode (``lax.approx_max_k``, which has no CUDA counterpart)
+    is served by it exactly, so neither has a program of its own here.
+
     Exactness of the host merge (proof, as in ``osr_tpu``): tail weights
     are strictly positive (non-positive-IDF terms live in the head), so a
     document's total is at least its head score. A document neither
@@ -117,7 +138,7 @@ def fused_search(
     )
     r = head.shape[0]
     kk = min(k, r)
-    use_block_prune = r >= BLOCK_PRUNE_MIN_ROWS and r // 128 > 2 * kk
+    use_block_prune = block_prune_applies(r, kk)
     quantized = head.dtype in (torch.int8, torch.uint8)
     bmax = None
     if head_backend == "cuda":
@@ -147,6 +168,63 @@ def fused_search(
         head_top, head_rows = topk(hs, k=kk)
     cand_head = hs[cand_flat_cols.long(), cand_flat_rows.long()]
     return head_top, head_rows, cand_head
+
+
+def fused_search_extract(
+    q_head_ids: torch.Tensor,  # (B, Qh) int32, padding >= head_terms
+    q_head_weights: torch.Tensor,  # (B, Qh) f32
+    head: torch.Tensor,  # (R, F) int8 or (R, F/2) uint8 int4-packed
+    head_scales: torch.Tensor,  # (F,) f32
+    valid: torch.Tensor,  # (R,) bool
+    *,
+    head_terms: int,
+    k: int,
+    narrow_m: int = 8,
+    head_backend: str,  # 'cuda' (K4) | 'torch' (its plain twin)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The extraction variant of the device step, for the host-merge path
+    (``osr_tpu/ops/bm25.py:fused_search_extract``).
+
+    K4 extracts each 128-row block's top ``narrow_m`` (value, row) in the
+    matmul's epilogue, so the (B, R) score matrix is never written; the
+    selection finishes over the (B, G, m) candidates
+    (:func:`~osr_tpu_torch.ops.topk.blocktopm_topk`). Returns (top (B,
+    k') f32, rows (B, k') int32, unsafe: a 0-dim bool tensor). When unsafe
+    is set the caller must re-run the standard program; when it is clear,
+    the engine's final results equal the standard program's."""
+    qhead = scatter_query_head(
+        q_head_ids, q_head_weights, head_terms=head_terms
+    )
+    if head_backend == "cuda":
+        vals, rows = head_ops.masked_head_blocktopm(
+            head, head_scales, qhead, valid, m=narrow_m
+        )
+    elif head_backend == "torch":
+        vals, rows = head_ops.masked_head_blocktopm_plain(
+            head, head_scales, qhead, valid, narrow_m
+        )
+    else:
+        raise ValueError(f"Unknown head_backend: {head_backend}")
+    return blocktopm_topk(vals, rows, k=k)
+
+
+def merge_chunks(
+    vals: torch.Tensor,  # (C, B, k) per-chunk top-k values
+    rows: torch.Tensor,  # (C, B, k) int32 chunk-local rows
+    bases: torch.Tensor,  # (C,) int64 first row of each chunk
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-row-chunk top-k lists into one (B, k) top-k
+    (``osr_tpu/ops/bm25.py:merge_packed_chunks``). Every global top-k
+    document is in its own chunk's top-k, so the union holds the global
+    top-k. Candidates are chunk-major and the selection is stable, so
+    ties resolve toward the lower chunk, then the chunk's own order.
+    Rows stay integers: int32 out, while every row is below 2^31."""
+    c, b, k = vals.shape
+    glob = rows.long() + bases.to(rows.device)[:, None, None]
+    flat_v = vals.permute(1, 0, 2).reshape(b, c * k)
+    flat_r = glob.permute(1, 0, 2).reshape(b, c * k)
+    top, pos = topk(flat_v, k=k)
+    return top, torch.gather(flat_r, 1, pos.long()).int()
 
 
 def dense_head_scores(

@@ -18,15 +18,22 @@ Wrappers, each with its plain version beside it:
 - :func:`masked_head_scores_blockmax` (int8 or int4): launches K2 (int8)
   or K3 (int4). Replaces ``_head_blockmax_kernel`` and
   ``_head_blockmax_kernel_i4`` (via ``head_scores_blockmax_pallas``).
+- :func:`masked_head_blocktopm` (int8 or int4): launches K4, the per-block
+  top-m extraction; the (B, R) scores are never written. Replaces
+  ``_make_blocktopm_kernel`` and ``_blocktopm_epilogue`` (via
+  ``head_blocktopm_pallas`` and ``masked_head_blocktopm``).
 
-All three are one templated CUDA kernel (``csrc/head.cu``). Bound on an
-H100 at the bench shape (B=3,328, R=57,640, F=2,048): 7.86e11 FLOP over
-989 TFLOP/s bf16 = 0.79 ms against 0.27 ms of bytes, so the tensor cores
-bound it. Its design answers that with one (128 x 128) output tile per
-thread block fed to bf16 ``mma.sync`` from shared memory, the block maxima
-reduced inside the block (no second pass over the (B, R) matrix), and a
-block order that keeps each head tile in L2 while every query tile reads
-it. Details at the top of ``csrc/head.cu``.
+All four are one templated CUDA kernel (``csrc/head.cu``) with three
+epilogues over one main loop, so K4's values are bit for bit the per-block
+top-m of K2's (K3's) scores. Bound on an H100 at the bench shape (B=3,328,
+R=57,728, F=2,048): 7.87e11 FLOP over 989 TFLOP/s bf16 = 0.7957 ms
+against 0.27 ms of bytes, so the tensor cores bound it; K4 per 1M-corpus
+chunk (B=2,048, R=500,096): 4.24 ms against 0.46 ms of bytes. Its design
+answers that with one (128 x 128) output tile per thread block fed to bf16
+``mma.sync`` from shared memory, the block maxima or top-m taken inside
+the block (no second pass over the (B, R) matrix), and a block order that
+keeps each head tile in L2 while every query tile reads it. Details at the
+top of ``csrc/head.cu``.
 
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
@@ -39,15 +46,18 @@ from typing import Dict, Tuple
 
 import torch
 
-from osr_tpu_torch.ops.topk import block_max
+from osr_tpu_torch.ops.topk import block_max, block_topm
 
 ROW_TILE = 128  # the kernels' head-row tile: one 128-row pruning block
 COL_ALIGN = 16  # the kernels' head-width alignment, in bytes
+BLOCKTOPM_MAX_M = 16  # K4's largest m (csrc/head.cu:kMaxM)
 
 LAUNCHES: Dict[str, int] = {
     "head_scores_i8": 0,  # K1
     "head_blockmax_i8": 0,  # K2
     "head_blockmax_i4": 0,  # K3
+    "head_blocktopm_i8": 0,  # K4, int8 head
+    "head_blocktopm_i4": 0,  # K4, int4 head
 }
 
 
@@ -139,6 +149,13 @@ def masked_head_scores_blockmax_plain(head, head_scales, qhead, valid):
     return hs, block_max(hs)
 
 
+def masked_head_blocktopm_plain(head, head_scales, qhead, valid, m):
+    """Plain twin of K4: the masked plain scores, -inf past R up to G
+    whole blocks, a stable descending sort per block, its first m."""
+    hs = masked_head_scores_plain(head, head_scales, qhead, valid)
+    return block_topm(hs, m)
+
+
 # ----------------------------------------------------------------------
 # Kernel wrappers
 # ----------------------------------------------------------------------
@@ -188,24 +205,14 @@ def _check_operands(head, head_scales, qhead, valid):
         raise ValueError("kernel dimensions must fit int32")
 
 
-def _launch(head, q, valid, out, bmax, int4: bool, name: str) -> None:
+def _launch(entry: str, name: str, device, *args) -> None:
+    """Call the C entry point ``entry`` of ``csrc/head.cu`` with ``args``
+    and the current stream; raise on a CUDA error, count the launch."""
     from osr_tpu_torch.ops import _build
 
     lib = _build.library("head")
-    stream = torch.cuda.current_stream(head.device).cuda_stream
-    code = lib.osr_head_scores(
-        q.data_ptr(),
-        head.data_ptr(),
-        valid.data_ptr(),
-        out.data_ptr(),
-        bmax.data_ptr() if bmax is not None else None,
-        q.shape[0],
-        head.shape[0],
-        head.shape[1],
-        int(int4),
-        int(bmax is not None),
-        stream,
-    )
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = getattr(lib, entry)(*args, stream)
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
 
@@ -236,7 +243,11 @@ def masked_head_scores(
             (q.shape[0], head.shape[0]), dtype=torch.float32,
             device=head.device,
         )
-        _launch(head, q, valid, out, None, False, "head_scores_i8")
+        _launch(
+            "osr_head_scores", "head_scores_i8", head.device, q.data_ptr(),
+            head.data_ptr(), valid.data_ptr(), out.data_ptr(), None,
+            q.shape[0], head.shape[0], head.shape[1], 0, 0,
+        )
     return out
 
 
@@ -265,7 +276,51 @@ def masked_head_scores_blockmax(
         out = torch.empty((b, r), dtype=torch.float32, device=head.device)
         bmax = torch.empty((g, b), dtype=torch.float32, device=head.device)
         _launch(
-            head, q, valid, out, bmax, int4,
+            "osr_head_scores",
             "head_blockmax_i4" if int4 else "head_blockmax_i8",
+            head.device, q.data_ptr(), head.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), bmax.data_ptr(), b, r, head.shape[1], int(int4),
+            1,
         )
     return out, bmax.T
+
+
+def masked_head_blocktopm(
+    head: torch.Tensor,  # (R, F) int8 or (R, F/2) uint8 int4-packed
+    head_scales: torch.Tensor,  # (F,) f32
+    qhead: torch.Tensor,  # (B, F) f32 query weights
+    valid: torch.Tensor,  # (R,) bool
+    m: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((B, G, m) f32 values, (B, G, m) int32 rows), G = ceil(R / 128): each
+    128-row block's m largest masked scores in descending order, ties to
+    the lower row, rows counted from 0 (K4 on CUDA, for m up to
+    ``BLOCKTOPM_MAX_M``). Rows past R are -inf; the row of a -inf value
+    is the next free row of its block, as a stable sort orders them."""
+    if not 1 <= m <= ROW_TILE:
+        raise ValueError(f"m must be in [1, {ROW_TILE}], got {m}")
+    if head.device.type == "cpu":
+        return masked_head_blocktopm_plain(
+            head, head_scales, qhead, valid, m
+        )
+    if head.device.type != "cuda":
+        raise ValueError(f"no kernel for device {head.device}")
+    if m > BLOCKTOPM_MAX_M:
+        raise ValueError(
+            f"the block top-m kernel takes m <= {BLOCKTOPM_MAX_M}, got {m}"
+        )
+    _check_operands(head, head_scales, qhead, valid)
+    int4 = head.dtype == torch.uint8
+    name = "head_blocktopm_i4" if int4 else "head_blocktopm_i8"
+    with torch.cuda.device(head.device):
+        q = scaled_query(qhead, head_scales, logical_width(head))
+        b, r = q.shape[0], head.shape[0]
+        g = -(-r // ROW_TILE)
+        vals = torch.empty((b, g, m), dtype=torch.float32, device=head.device)
+        rows = torch.empty((b, g, m), dtype=torch.int32, device=head.device)
+        _launch(
+            "osr_head_blocktopm", name, head.device, q.data_ptr(),
+            head.data_ptr(), valid.data_ptr(), vals.data_ptr(),
+            rows.data_ptr(), b, r, head.shape[1], int(int4), m,
+        )
+    return vals, rows

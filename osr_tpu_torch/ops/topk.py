@@ -7,6 +7,11 @@ topk.py:129-133``, ``osr_tpu/index/postings.py:merge_host``).
 ``torch.topk`` does not specify its tie order, so every selection here is
 a stable descending sort that keeps the first k: equal values stay in
 index order.
+
+``osr_tpu``'s per-block narrowing (``block_topk_narrow``) has no
+counterpart: it is bit-identical to :func:`block_topk_from_max`, which the
+port runs in its place (no ``lax.cond`` to mirror, so no host sync and no
+second branch).
 """
 
 from __future__ import annotations
@@ -22,6 +27,23 @@ def topk(scores: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     kk = min(k, scores.shape[-1])
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :kk], idx[..., :kk].int()
+
+
+def block_topm(
+    scores: torch.Tensor, m: int, block_cols: int = 128
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each ``block_cols``-column block's m largest scores: ((B, G, m)
+    values, (B, G, m) int32 columns), G = ceil(R / block_cols), columns
+    past R counted as -inf. A stable descending sort per block, so ties go
+    to the lower column and equal values come out in column order."""
+    b, r = scores.shape
+    g = -(-r // block_cols)
+    pad = g * block_cols - r
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+    vals, lanes = topk(scores.reshape(b, g, block_cols), k=m)
+    base = torch.arange(g, dtype=torch.int32, device=scores.device) * block_cols
+    return vals, lanes + base[None, :, None]
 
 
 def block_max(scores: torch.Tensor, block_cols: int = 128) -> torch.Tensor:
@@ -82,3 +104,36 @@ def block_topk_from_max(
         cand = cand.masked_fill(cols >= r, float("-inf"))
     vals, pos = topk(cand, k=kk)
     return vals, torch.gather(cols, 1, pos.long()).int()
+
+
+def blocktopm_topk(
+    vals: torch.Tensor,  # (B, G, m) per-block top-m values, desc per block
+    rows: torch.Tensor,  # (B, G, m) int32 rows
+    *,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-k from per-block top-m candidates (K4's output,
+    ``ops/head.py:masked_head_blocktopm``; ``osr_tpu/ops/topk.py:
+    blocktopm_topk``). Returns (values (B, k'), int32 rows (B, k'),
+    unsafe: a 0-dim bool tensor on the device).
+
+    The top-k blocks by their maxima (``vals[..., 0]``), then the top-k of
+    their k * m candidates, block-rank-major: the block set and tie order
+    of :func:`block_topk_from_max`. ``unsafe`` is set when some selected
+    block's m-th value reaches the k-th value tau and is positive. With it
+    clear, every document the narrowing missed scores below tau or at most
+    0, and the engines keep only positive scores, so their results equal
+    the full-width path's. With it set the caller must re-run the
+    full-width program: the full score matrix was never written."""
+    b, g, m = vals.shape
+    nb = min(k, g)
+    kk = min(k, g * m, nb * m)
+    _, top_blocks = topk(vals[:, :, 0], k=nb)  # (B, nb)
+    idx = top_blocks.long()[:, :, None].expand(b, nb, m)
+    cand_v = torch.gather(vals, 1, idx).reshape(b, nb * m)
+    cand_r = torch.gather(rows, 1, idx).reshape(b, nb * m)
+    top, pos = topk(cand_v, k=kk)
+    top_rows = torch.gather(cand_r, 1, pos.long())
+    mth = torch.gather(vals[:, :, -1], 1, top_blocks.long())
+    unsafe = ((mth >= top[:, -1:]) & (mth > 0.0)).any()
+    return top, top_rows, unsafe

@@ -20,9 +20,12 @@ with ``non_blocking`` copies and a recorded CUDA event;
 candidate head dots overlap the device step, and ``run_pipelined`` keeps
 several batches in flight.
 
-Not yet ported (refused with NotImplementedError rather than rerouted):
-``topk_mode='approx'``, per-block narrowing (``narrow_m > 0``,
-``narrow_backend='extract'``) and row-chunked scoring.
+Every plan of ``osr_tpu``'s engine runs: ``topk_mode='approx'`` and
+per-block narrowing (``narrow_m``), both served exactly by the standard
+block-pruned selection; the extraction kernel K4
+(``narrow_backend='extract'``: the (B, R) scores are never written); and
+row-chunked scoring, whose chunk size comes from the device's free memory
+(:func:`plan_score_chunks`).
 
 Dense (quantized embeddings). :class:`DenseSearchEngine` keeps the
 quantized corpus on the device. One batch is one device step: quantize
@@ -33,6 +36,7 @@ buffers and event as the sparse engine's.
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -56,7 +60,14 @@ from osr_tpu_torch.index.tokenizer import Tokenizer
 from osr_tpu_torch.ops import head as head_ops
 from osr_tpu_torch.ops import matmul as matmul_ops
 from osr_tpu_torch.ops import quantize as qz
-from osr_tpu_torch.ops.bm25 import dense_head_scores, fused_search
+from osr_tpu_torch.ops.bm25 import (
+    BLOCK_PRUNE_MIN_ROWS,
+    block_prune_applies,
+    dense_head_scores,
+    fused_search,
+    fused_search_extract,
+    merge_chunks,
+)
 from osr_tpu_torch.retrieval.encoding import (
     EncodedBatch,
     QueryEncoder,
@@ -70,28 +81,84 @@ from osr_tpu_torch.retrieval.results import (
     assemble_result_dicts,
 )
 
+logger = logging.getLogger(__name__)
+
 DEFAULT_BATCH_SIZES = (8, 32, 128, 256, 512)
 
 # Share of the device memory free at construction that the head plus one
-# (B_max, R) f32 score slab may take. The rest covers the selection's
+# sweep's transients (the (B_max, rows) f32 score slab, and the plain
+# path's f32 head copy) may take. The rest covers the selection's
 # transients (a stable sort holds values, int64 indices and scratch several
-# times the slab) and the batches kept in flight.
+# times its input) and the batches kept in flight.
 SEARCH_MEMORY_FRACTION = 0.25
 
-_NOT_PORTED = (
-    "is not ported yet (ROADMAP.md Queue 1 item 4: chunked scoring, "
-    "approx and narrow selection)"
-)
+
+def plan_score_chunks(
+    *,
+    num_rows: int,
+    head_bytes: int,
+    max_batch: int,
+    head_width: int,  # logical head columns (twice the int4 packed width)
+    free_bytes: Optional[int],  # device memory free; None = no budget
+    plain_f32_copy: bool,  # the plain head step decodes an f32 head copy
+    requested: Optional[int] = None,  # None = auto; 0 = off; else rows
+) -> Tuple[int, int, Optional[int]]:
+    """The row-chunk plan of a sparse engine: (chunk_rows, need, budget).
+
+    A sweep over ``rows`` head rows holds ``rows * row_bytes`` of
+    transients: the (B_max, rows) f32 score slab, 4 B_max bytes a row, plus
+    4 W bytes a row when the plain head step decodes the head to f32.
+    ``budget`` is ``SEARCH_MEMORY_FRACTION`` of ``free_bytes``. Auto
+    (``requested=None``) keeps one sweep while head + R rows fit the
+    budget, and otherwise chunks at max((budget - head) / row_bytes,
+    4,096) rows, rounded down to the kernels' row tile. An explicit
+    ``requested`` is honoured. ``chunk_rows`` is 0 for one sweep; ``need``
+    is the head plus one sweep's transients of the plan chosen, which the
+    caller compares with ``budget`` (None without a device figure)."""
+    row_bytes = 4 * max_batch + (4 * head_width if plain_f32_copy else 0)
+    rows = round_up(num_rows, head_ops.ROW_TILE)
+    budget = (
+        int(SEARCH_MEMORY_FRACTION * free_bytes)
+        if free_bytes is not None
+        else None
+    )
+    if requested is None:
+        if budget is None or head_bytes + rows * row_bytes <= budget:
+            chunk = 0
+        else:
+            fit = (budget - head_bytes) // row_bytes
+            fit -= fit % head_ops.ROW_TILE
+            chunk = max(fit, BLOCK_PRUNE_MIN_ROWS)
+    else:
+        chunk = int(requested)
+    if chunk >= num_rows:
+        chunk = 0
+    sweep = round_up(chunk, head_ops.ROW_TILE) if chunk else rows
+    return chunk, head_bytes + sweep * row_bytes, budget
+
+
+def _head_to(arr: np.ndarray, head_dtype: str, device) -> torch.Tensor:
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if head_dtype == "bf16":
+        host = host.view(torch.int16).view(torch.bfloat16)
+    return host.to(device)
 
 
 class _DeviceIndex:
     """Device-resident head of a :class:`HybridLayout` (the postings stay
-    on the host). Head rows pad once at upload to the kernels' row tile
-    (invalid, so -inf), and head widths to the kernels' column alignment
-    (zero columns, or an int4 re-pack to a wider packed width)."""
+    on the host). Head widths pad once at upload to the kernels' column
+    alignment (zero columns, or an int4 re-pack to a wider packed width),
+    and head rows to the kernels' row tile (invalid, so -inf).
 
-    def __init__(self, layout, device: torch.device):
+    ``chunk_rows`` splits the head into row chunks of one equal size,
+    rounded up to the row tile (``osr_tpu`` equalizes them the same way, so
+    no short last chunk wastes memory); the engine scores and selects per
+    chunk and merges the chunks' top-k (``ops/bm25.py:merge_chunks``).
+    Chunk bases are int64 and rows int32, so no f32 row cap applies."""
+
+    def __init__(self, layout, device: torch.device, chunk_rows=None):
         head, valid = layout.head, layout.valid
+        tile = head_ops.ROW_TILE
         if layout.head_dtype == "int4" and head.shape[1] % head_ops.COL_ALIGN:
             head = repack_int4(
                 head, layout.head_terms,
@@ -101,21 +168,41 @@ class _DeviceIndex:
             head = np.pad(
                 head, ((0, 0), (0, (-head.shape[1]) % head_ops.COL_ALIGN))
             )
-        pad_r = (-head.shape[0]) % head_ops.ROW_TILE
-        if pad_r:
-            head = np.pad(head, ((0, pad_r), (0, 0)))
-            valid = np.pad(valid, (0, pad_r))
-        host = torch.from_numpy(np.ascontiguousarray(head))
-        if layout.head_dtype == "bf16":
-            host = host.view(torch.int16).view(torch.bfloat16)
-        self.head = host.to(device)
-        self.valid = torch.from_numpy(np.ascontiguousarray(valid)).to(device)
+        r = head.shape[0]
+        if chunk_rows and r > chunk_rows:
+            n_chunks = -(-r // round_up(int(chunk_rows), tile))
+            cr = round_up(-(-r // n_chunks), tile)
+        else:
+            n_chunks, cr = 1, round_up(r, tile)
+        parts = []
+        for lo in range(0, n_chunks * cr, cr):
+            h, v = head[lo : lo + cr], valid[lo : lo + cr]
+            pad = cr - h.shape[0]
+            if pad:
+                h = np.pad(h, ((0, pad), (0, 0)))
+                v = np.pad(v, (0, pad))
+            parts.append(
+                (
+                    _head_to(h, layout.head_dtype, device),
+                    torch.from_numpy(np.ascontiguousarray(v)).to(device),
+                )
+            )
         self.head_scales = (
             torch.from_numpy(layout.head_scales).to(device)
             if layout.head_scales is not None
             else None
         )
-        self.num_rows = self.head.shape[0]
+        self.chunk_rows = cr  # rows of one sweep: a chunk, or the head
+        self.num_rows = n_chunks * cr
+        if n_chunks > 1:
+            self.chunks = parts
+            self.chunk_bases = torch.arange(
+                0, self.num_rows, cr, dtype=torch.int64, device=device
+            )
+            self.head = self.valid = None
+        else:
+            self.chunks = self.chunk_bases = None
+            self.head, self.valid = parts[0]
         self.empty_i32 = torch.zeros(0, dtype=torch.int32, device=device)
 
 
@@ -171,7 +258,19 @@ class SparseSearchEngine:
     ``device`` defaults to ``cuda``; pass ``"cpu"`` for the plain PyTorch
     path. ``head_backend``: 'auto' takes the CUDA kernels for an int8/int4
     head on a CUDA device and the plain version otherwise; 'cuda' insists
-    on the kernels; 'torch' runs the plain version on any device."""
+    on the kernels; 'torch' runs the plain version on any device.
+
+    ``topk_mode='approx'`` takes the exact block-pruned selection
+    (``lax.approx_max_k`` has no CUDA counterpart; its recall here is
+    1.0), and so does ``narrow_m > 0`` with ``narrow_backend='torch'``
+    (``osr_tpu``'s narrowed selection is bit-identical to it). m is K4's:
+    ``narrow_backend='extract'`` with ``narrow_m > 0``, an int8/int4 head
+    and the host merge runs K4 (its plain twin with
+    ``head_backend='torch'``) wherever a sweep has the block-pruned
+    selection's rows; a batch whose tie-safety flag is set re-runs the
+    standard program. ``score_chunk_rows``: None sizes row
+    chunks from the device's free memory (:func:`plan_score_chunks`), 0
+    turns chunking off, a number asks for that many rows a chunk."""
 
     def __init__(
         self,
@@ -185,23 +284,19 @@ class SparseSearchEngine:
         head_backend: str = "auto",  # 'cuda' | 'torch' | 'auto'
         score_chunk_rows: Optional[int] = None,  # None = auto; 0 = off
         narrow_m: int = 0,
-        narrow_backend: str = "torch",
+        narrow_backend: str = "torch",  # 'torch' | 'extract' (K4)
         cand_filter_per_query: int = 2048,  # defer+filter gate; 0 = off
     ):
         self.index = index
         self.device = _resolve_device(device)
         self.batch_sizes = tuple(sorted(batch_sizes))
-        if topk_mode == "approx":
-            raise NotImplementedError(f"topk_mode='approx' {_NOT_PORTED}")
-        if topk_mode != "exact":
+        if topk_mode not in ("exact", "approx"):
             raise ValueError(f"Unknown topk_mode: {topk_mode}")
         self.topk_mode = topk_mode
-        if narrow_m or narrow_backend == "extract":
-            raise NotImplementedError(
-                f"narrow_m / narrow_backend='extract' {_NOT_PORTED}"
-            )
-        if narrow_backend != "torch":
+        if narrow_backend not in ("torch", "extract"):
             raise ValueError(f"Unknown narrow_backend: {narrow_backend}")
+        self.narrow_m = int(narrow_m)
+        self.narrow_backend = narrow_backend
         self.cand_filter_per_query = int(cand_filter_per_query)
         layout = index.layout
         quantized = layout.head_dtype in ("int8", "int4")
@@ -219,15 +314,27 @@ class SparseSearchEngine:
         if head_backend not in ("cuda", "torch"):
             raise ValueError(f"Unknown head_backend: {head_backend}")
         self.head_backend = head_backend
+        if (
+            narrow_backend == "extract"
+            and head_backend == "cuda"
+            and self.narrow_m > head_ops.BLOCKTOPM_MAX_M
+        ):
+            raise ValueError(
+                f"narrow_m={self.narrow_m}: the block top-m kernel takes "
+                f"m <= {head_ops.BLOCKTOPM_MAX_M}"
+            )
         if merge_backend == "auto":
             merge_backend = "host" if native.available() else "device"
         if merge_backend not in ("host", "device"):
             raise ValueError(f"Unknown merge_backend: {merge_backend}")
         self.merge_backend = merge_backend
-        self._check_memory(score_chunk_rows)
         self.tokenizer = Tokenizer(index.vocabulary)
         self.encoder = QueryEncoder(self.tokenizer)
-        self._dev = _DeviceIndex(layout, self.device)
+        self._dev = _DeviceIndex(
+            layout, self.device,
+            chunk_rows=self._chunk_rows(score_chunk_rows) or None,
+        )
+        self._redispatches = 0
         (
             self._host_head,
             self._host_head_dtype,
@@ -241,25 +348,45 @@ class SparseSearchEngine:
         self._cache_lock = threading.RLock()
         self._doc_names = as_object_names(index.doc_ids)
 
-    def _check_memory(self, score_chunk_rows: Optional[int]) -> None:
-        """Refuse plans that need row chunking: an explicit chunk size, or
-        (auto) a head plus (B_max, R) f32 slab over the budget taken from
-        the device's free memory."""
-        if score_chunk_rows:
-            raise NotImplementedError(f"score_chunk_rows {_NOT_PORTED}")
-        if score_chunk_rows is not None or self.device.type != "cuda":
-            return
+    def _chunk_rows(self, requested: Optional[int]) -> int:
+        """Rows a score chunk (0: one sweep) from :func:`plan_score_chunks`,
+        with ``osr_tpu``'s two warnings: chunking needs the host merge, and
+        an explicit chunk over the budget may run out of memory."""
         layout = self.index.layout
-        rows = round_up(layout.num_rows, head_ops.ROW_TILE)
-        need = layout.head.nbytes + 4 * self.batch_sizes[-1] * rows
-        free, _ = torch.cuda.mem_get_info(self.device)
-        budget = int(SEARCH_MEMORY_FRACTION * free)
-        if need > budget:
-            raise NotImplementedError(
-                f"head + (B={self.batch_sizes[-1]}, R={rows}) scores need "
-                f"{need / 2**30:.1f} GiB over the {budget / 2**30:.1f} GiB "
-                f"budget; row-chunked scoring {_NOT_PORTED}"
+        free = (
+            torch.cuda.mem_get_info(self.device)[0]
+            if self.device.type == "cuda"
+            else None
+        )
+        width = layout.head.shape[1] * (2 if layout.head_dtype == "int4" else 1)
+        rows, need, budget = plan_score_chunks(
+            num_rows=layout.num_rows,
+            head_bytes=layout.head.nbytes,
+            max_batch=self.batch_sizes[-1],
+            head_width=width,
+            free_bytes=free,
+            plain_f32_copy=(
+                self.head_backend == "torch" and layout.head_dtype != "f32"
+            ),
+            requested=requested,
+        )
+        if rows and self.merge_backend != "host":
+            logger.warning(
+                "score chunking (%d rows a chunk) is off: merge_backend=%r "
+                "has no chunked path, so one (B=%d, R=%d) sweep runs and "
+                "may exceed the %.1f GiB search budget",
+                rows, self.merge_backend, self.batch_sizes[-1],
+                layout.num_rows, (budget or 0) / 2**30,
             )
+            return 0
+        if requested and rows and budget is not None and need > budget:
+            logger.warning(
+                "score_chunk_rows=%d needs %.1f GiB of head + chunk, over "
+                "the %.1f GiB search budget: expect the device to run out "
+                "of memory",
+                rows, need / 2**30, budget / 2**30,
+            )
+        return rows
 
     # ------------------------------------------------------------------
     # Device path
@@ -293,6 +420,79 @@ class SparseSearchEngine:
             head_t=self._head_t,
         )
 
+    def _extract_applies(self, rows: int, top_k: int) -> bool:
+        """The extraction kernel runs where a sweep of ``rows`` rows would
+        take the block-pruned exact selection, on the host merge (there is
+        no device candidate gather to serve) and an int8/int4 head."""
+        return (
+            self.narrow_backend == "extract"
+            and self.narrow_m > 0
+            and self.merge_backend == "host"
+            and self.index.layout.head_dtype in ("int8", "int4")
+            and block_prune_applies(rows, top_k)
+        )
+
+    def _use_extract(self, top_k: int) -> bool:
+        """The unchunked engine takes the extraction path."""
+        d = self._dev
+        return d.chunks is None and self._extract_applies(d.num_rows, top_k)
+
+    def _use_extract_chunked(self, top_k: int) -> bool:
+        """The chunked engine takes the extraction path in every chunk
+        (the chunks share one size, so one floor check covers them)."""
+        d = self._dev
+        return d.chunks is not None and self._extract_applies(
+            d.chunk_rows, top_k
+        )
+
+    def _sweep(self, ids, w, head, valid, top_k, extract, flat=None):
+        """One sweep of the device step over ``head`` rows: (top, rows,
+        unsafe flag or None, candidates' head scores or None)."""
+        d = self._dev
+        terms = self.index.layout.head_terms
+        if extract:
+            top, rows, unsafe = fused_search_extract(
+                ids, w, head, d.head_scales, valid, head_terms=terms,
+                k=top_k, narrow_m=self.narrow_m,
+                head_backend=self.head_backend,
+            )
+            return top, rows, unsafe, None
+        flat_rows, flat_cols = flat or (d.empty_i32, d.empty_i32)
+        top, rows, cand_head = fused_search(
+            ids, w, flat_rows, flat_cols, head, d.head_scales, valid,
+            head_terms=terms, k=top_k, head_backend=self.head_backend,
+        )
+        return top, rows, None, cand_head
+
+    def _dispatch_chunked(self, ids, w, top_k: int, extract: bool):
+        """One sweep per row chunk, then the chunks' top-k merged on the
+        device: (top, rows, unsafe flag or None). A chunk's (B, Rc) scores
+        are released when its sweep returns, so the next chunk reuses that
+        memory: one chunk's slab is live at a time. The flag is the max
+        over chunks."""
+        d = self._dev
+        vals, rows, flags = [], [], []
+        for head_c, valid_c in d.chunks:
+            top, r, unsafe, _ = self._sweep(
+                ids, w, head_c, valid_c, top_k, extract
+            )
+            vals.append(top)
+            rows.append(r)
+            flags.append(unsafe)
+        top, r = merge_chunks(torch.stack(vals), torch.stack(rows),
+                              d.chunk_bases)
+        return top, r, (torch.stack(flags).any() if extract else None)
+
+    def _standard_step(self, ids, w, top_k: int):
+        """The standard program (no extraction), chunked or not: (top,
+        rows) on the device."""
+        d = self._dev
+        if d.chunks is not None:
+            top, rows, _ = self._dispatch_chunked(ids, w, top_k, False)
+            return top, rows
+        top, rows, _, _ = self._sweep(ids, w, d.head, d.valid, top_k, False)
+        return top, rows
+
     def search_encoded_device(self, enc: EncodedBatch, top_k: int):
         """Launch the device step and start its result copy, then run the
         host stages that do not need it (tail candidates were walked
@@ -301,31 +501,35 @@ class SparseSearchEngine:
         Returns an opaque in-flight handle for :meth:`finish_batch`."""
         d = self._dev
         cand = self._tail_candidates(enc, enc.head_ids.shape[0])
+        ids = self._upload(enc.head_ids)
+        w = self._upload(enc.head_weights)
         if self.merge_backend == "device":
-            flat_rows = self._upload(cand.rows)
-            flat_cols = self._upload(cand.cols)
-        else:
-            flat_rows = flat_cols = d.empty_i32
-        top, rows, cand_head_dev = fused_search(
-            self._upload(enc.head_ids),
-            self._upload(enc.head_weights),
-            flat_rows,
-            flat_cols,
-            d.head,
-            d.head_scales,
-            d.valid,
-            head_terms=self.index.layout.head_terms,
-            k=top_k,
-            head_backend=self.head_backend,
-        )
-        if self.merge_backend == "device":
+            # Chunking and extraction need the host merge, so this is the
+            # one unchunked standard sweep; its candidates' head scores come
+            # from the same score matrix as its top-k: no slack.
+            flat = (self._upload(cand.rows), self._upload(cand.cols))
+            top, rows, _, cand_head_dev = self._sweep(
+                ids, w, d.head, d.valid, top_k, False, flat
+            )
             result = _PendingResult((top, rows, cand_head_dev), self.device)
-            # The device's candidate head scores come from the same score
-            # matrix as its top-k: no discrepancy, no slack.
             return cand, result, None, np.zeros(
                 enc.head_ids.shape[0], dtype=np.float32
+            ), None
+        if d.chunks is not None:
+            top, rows, unsafe = self._dispatch_chunked(
+                ids, w, top_k, self._use_extract_chunked(top_k)
             )
-        result = _PendingResult((top, rows), self.device)
+        else:
+            top, rows, unsafe, _ = self._sweep(
+                ids, w, d.head, d.valid, top_k, self._use_extract(top_k)
+            )
+        if unsafe is None:
+            result, redo = _PendingResult((top, rows), self.device), None
+        else:
+            # Keep the query tensors: a batch whose flag is set re-runs
+            # the standard program from them.
+            result = _PendingResult((top, rows, unsafe), self.device)
+            redo = (ids, w)
         tau_slack = merge_tau_slack(
             self._slack_per_term,
             enc.head_flat_ids,
@@ -343,18 +547,25 @@ class SparseSearchEngine:
             cand_head = ("tau_filter", enc)
         else:
             cand_head = self._cand_head_host(cand, enc)
-        return cand, result, cand_head, tau_slack
+        return cand, result, cand_head, tau_slack, redo
 
     def finish_batch(
         self, in_flight, top_k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Wait for the device result and run the exact host merge."""
-        cand, result, cand_head, tau_slack = in_flight
+        """Wait for the device result and run the exact host merge. An
+        extraction batch whose tie-safety flag is set re-runs the standard
+        program first (the narrowed candidates could miss a top-k
+        member)."""
+        cand, result, cand_head, tau_slack, redo = in_flight
         arrays = result.wait()
         head_s, head_r = arrays[0], arrays[1]
         if cand_head is None:
             cand_head = arrays[2]
-        elif isinstance(cand_head, tuple):
+        if redo is not None and bool(arrays[2]):
+            self._redispatches += 1
+            top, rows = self._standard_step(*redo, top_k)
+            head_s, head_r = _PendingResult((top, rows), self.device).wait()
+        if isinstance(cand_head, tuple):
             enc = cand_head[1]
             cand = filter_candidates_by_tau(
                 cand, head_s, head_r, top_k, tau_slack, self._dev.num_rows
@@ -372,24 +583,30 @@ class SparseSearchEngine:
 
     def score_all(self, texts: Sequence[str]) -> np.ndarray:
         """Dense (len(texts), num_docs) score matrix: the oracle API. Head
-        scores come from the device (plain version, in the head's dtype);
-        tail scores are added on the host exactly."""
+        scores come from the device (plain version, in the head's dtype,
+        chunk by chunk on a chunked engine); tail scores are added on the
+        host exactly."""
         d = self._dev
         layout = self.index.layout
         n = self.index.num_docs
         out = np.zeros((len(texts), n), dtype=np.float32)
         max_b = self.batch_sizes[-1]
+        heads = [c for c, _ in d.chunks] if d.chunks is not None else [d.head]
         for i in range(0, len(texts), max_b):
             chunk = texts[i : i + max_b]
             enc = self.encode_queries(chunk)
-            hs = dense_head_scores(
-                self._upload(enc.head_ids),
-                self._upload(enc.head_weights),
-                d.head,
-                d.head_scales,
-                head_terms=layout.head_terms,
-            )
-            scores = hs.cpu().numpy()[: len(chunk), :n]
+            ids = self._upload(enc.head_ids)
+            w = self._upload(enc.head_weights)
+            scores = np.concatenate(
+                [
+                    dense_head_scores(
+                        ids, w, h, d.head_scales,
+                        head_terms=layout.head_terms,
+                    ).cpu().numpy()
+                    for h in heads
+                ],
+                axis=1,
+            )[: len(chunk), :n]
             tail = dense_tail_scores(
                 layout.post_ptr,
                 layout.post_rows,
@@ -504,6 +721,10 @@ class SparseSearchEngine:
         s["topk_mode"] = self.topk_mode
         s["head_backend"] = self.head_backend
         s["merge_backend"] = self.merge_backend
+        if self._dev.chunks is not None:
+            s["score_chunks"] = len(self._dev.chunks)
+        if self.narrow_backend == "extract":
+            s["extract_redispatches"] = self._redispatches
         if self._query_cache is not None:
             s["query_cache_size"] = len(self._query_cache)
         return s

@@ -7,17 +7,29 @@ same doc ids in the same order, except at positions whose score is within
 1e-5 relative of a neighbour's (a near-tie that f32 summation order may
 flip), and scores agree to rtol 1e-5 (the head scores of the two engines
 differ only in f32 accumulation order; the host merge is shared code).
+
+The plans beyond the standard one (approx, narrowing, the extraction
+kernel's plain twin, row chunks) run on a 12,000-document index: with
+score_chunk_rows=4,096 it splits into 3 chunks of 4,096 rows, each at
+the extraction path's floor (4,096 rows, more than 2 k blocks).
 """
+
+import logging
 
 import numpy as np
 import pytest
+import torch
 
 import osr_tpu_torch.testing as ttesting
 from osr_tpu.index.builder import SparseIndexBuilder
 from osr_tpu.retrieval.engine import SparseSearchEngine as JaxEngine
 from osr_tpu.testing import SyntheticDataGenerator
 from osr_tpu_torch.convert import index_from_arrays
-from osr_tpu_torch.retrieval.engine import SparseSearchEngine
+from osr_tpu_torch.retrieval import engine as tengine
+from osr_tpu_torch.retrieval.engine import (
+    SparseSearchEngine,
+    plan_score_chunks,
+)
 
 VOCAB = 20_000
 RTOL = 1e-5
@@ -143,23 +155,174 @@ def test_cuda_backend_refused_on_cpu(indexes):
         SparseSearchEngine(tidx, device="cpu", head_backend="cuda")
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"topk_mode": "approx"},
-        {"narrow_m": 8},
-        {"narrow_backend": "extract"},
-        {"score_chunk_rows": 1024},
-    ],
-)
-def test_unported_plans_refused(indexes, kwargs):
-    _, tidx = indexes["int8"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-        SparseSearchEngine(tidx, device="cpu", **kwargs)
-
-
 def test_port_generator_builds_the_same_corpus(corpus):
     port = ttesting.SyntheticDataGenerator(seed=42).zipf_corpus(
         5_000, VOCAB, avg_len=130, word_prefix="t", min_len=5
     )
     assert port == corpus
+
+
+# ----------------------------------------------------------------------
+# Approx, narrowed, extracted and row-chunked plans
+# ----------------------------------------------------------------------
+
+PLAN_K = 10
+PLAN_B = 24
+CHUNK = 4_096
+PLANS = {
+    "approx": {"topk_mode": "approx"},
+    "narrow": {"narrow_m": 8},
+    "extract": {"narrow_m": 8, "narrow_backend": "extract"},
+    "chunked": {"score_chunk_rows": CHUNK},
+    "extract_chunked": {
+        "narrow_m": 8, "narrow_backend": "extract", "score_chunk_rows": CHUNK,
+    },
+}
+
+
+@pytest.fixture(scope="module")
+def plan_case():
+    """12,000 docs (osr_tpu's extraction tests use 10,000: its 1,024-row
+    tile pads 3 chunks to 4,096 rows, where the port's 128-row tile would
+    give 3,456), 24 queries, int8 and int4 indexes, and osr_tpu's
+    standard engine's results on each."""
+    gen = SyntheticDataGenerator(seed=42)
+    corpus = gen.zipf_corpus(12_000, VOCAB, avg_len=60, word_prefix="t")
+    queries = gen.queries(PLAN_B, VOCAB, avg_terms=8, word_prefix="t")
+    out = {}
+    for dtype in ("int8", "int4"):
+        jidx = SparseIndexBuilder(method="bm25", head_dtype=dtype).build(
+            corpus
+        )
+        want = JaxEngine(
+            jidx, batch_sizes=(PLAN_B,), cache_queries=False
+        ).search(queries, top_k=PLAN_K)
+        out[dtype] = (_convert(jidx), want)
+    return queries, out
+
+
+def _plan_engine(tidx, **kwargs):
+    return SparseSearchEngine(
+        tidx, device="cpu", batch_sizes=(PLAN_B,), cache_queries=False,
+        merge_backend="host", **kwargs,
+    )
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_plans_match_osr_tpu(plan_case, dtype, plan):
+    queries, cases = plan_case
+    tidx, want = cases[dtype]
+    eng = _plan_engine(tidx, **PLANS[plan])
+    chunked = "score_chunk_rows" in PLANS[plan]
+    assert (eng._dev.chunks is not None) == chunked
+    if chunked:
+        assert len(eng._dev.chunks) == 3 and eng._dev.chunk_rows == CHUNK
+    extract = PLANS[plan].get("narrow_backend") == "extract"
+    assert eng._use_extract(PLAN_K) == (extract and not chunked)
+    assert eng._use_extract_chunked(PLAN_K) == (extract and chunked)
+    got = eng.search(queries, top_k=PLAN_K)
+    assert sum(1 for r in got.values() if r) > 20
+    assert_same_results(got, want)
+    # Every plan is exact by construction: dict for dict the port's own
+    # standard engine of the same chunking (approx and narrow run its
+    # selection; extraction must reproduce it).
+    if plan != "chunked":
+        std = _plan_engine(
+            tidx, score_chunk_rows=CHUNK if chunked else 0
+        ).search(queries, top_k=PLAN_K)
+        assert got == std
+    if extract:
+        assert eng.stats()["extract_redispatches"] == 0
+
+
+@pytest.mark.parametrize("chunk", [0, CHUNK])
+def test_extract_unsafe_flag_reruns_standard_program(
+    plan_case, monkeypatch, chunk
+):
+    """A raised tie-safety flag re-runs the standard program (chunked or
+    not) for the batch: the results are the standard engine's."""
+    queries, cases = plan_case
+    tidx, _ = cases["int8"]
+    real = tengine.fused_search_extract
+    calls = {"n": 0}
+
+    def always_unsafe(*args, **kwargs):
+        calls["n"] += 1
+        top, rows, _ = real(*args, **kwargs)
+        return top, rows, torch.tensor(True)
+
+    monkeypatch.setattr(tengine, "fused_search_extract", always_unsafe)
+    ex = _plan_engine(
+        tidx, narrow_m=8, narrow_backend="extract", score_chunk_rows=chunk
+    )
+    got = ex.search(queries, top_k=PLAN_K)
+    assert calls["n"] == (3 if chunk else 1)
+    assert ex.stats()["extract_redispatches"] == 1
+    std = _plan_engine(tidx, score_chunk_rows=chunk)
+    assert got == std.search(queries, top_k=PLAN_K)
+
+
+def test_extract_declines_chunks_below_the_floor(plan_case):
+    """Chunks of 2,048 rows are below the extraction floor: the engine
+    takes the standard chunked program, still right."""
+    queries, cases = plan_case
+    tidx, want = cases["int8"]
+    ex = _plan_engine(
+        tidx, narrow_m=8, narrow_backend="extract", score_chunk_rows=2_048
+    )
+    assert ex._dev.chunks is not None and ex._dev.chunk_rows == 2_048
+    assert not ex._use_extract_chunked(PLAN_K)
+    assert_same_results(ex.search(queries, top_k=PLAN_K), want)
+    assert ex.stats()["extract_redispatches"] == 0
+
+
+def test_score_chunks_in_stats(plan_case):
+    _, cases = plan_case
+    tidx, _ = cases["int4"]
+    assert _plan_engine(tidx, score_chunk_rows=CHUNK).stats()[
+        "score_chunks"
+    ] == 3
+    assert "score_chunks" not in _plan_engine(tidx).stats()
+
+
+def test_chunking_needs_the_host_merge(plan_case, caplog):
+    _, cases = plan_case
+    tidx, _ = cases["int8"]
+    with caplog.at_level(logging.WARNING, logger=tengine.__name__):
+        eng = SparseSearchEngine(
+            tidx, device="cpu", merge_backend="device",
+            score_chunk_rows=CHUNK,
+        )
+    assert eng._dev.chunks is None
+    assert "score chunking" in caplog.text
+
+
+# Rows 100,000 (100,096 at the 128-row tile), a 1 MB head, B_max = 512,
+# 256 head columns: the sweep's transients are 4 * 512 = 2,048 bytes a
+# row, 3,072 with the plain path's f32 head copy.
+BUDGET_CASES = [
+    # (free bytes, plain f32 copy, requested, chunk rows)
+    (10**9, False, None, 0),  # 1 MB + 205 MB fits 250 MB: one sweep
+    (100 * 10**6, False, None, 11_648),  # (25 MB - 1 MB) / 2,048, tiled
+    (100 * 10**6, True, None, 7_808),  # the f32 copy: / 3,072, tiled
+    (8 * 10**6, False, None, 4_096),  # the floor
+    (None, False, None, 0),  # no device figure: no budget
+    (8 * 10**6, False, 5_000, 5_000),  # an explicit size is honoured
+    (8 * 10**6, False, 200_000, 0),  # ... unless it covers the head
+]
+
+
+@pytest.mark.parametrize("free,copy,requested,chunk", BUDGET_CASES)
+def test_plan_score_chunks(free, copy, requested, chunk):
+    rows, need, budget = plan_score_chunks(
+        num_rows=100_000, head_bytes=10**6, max_batch=512, head_width=256,
+        free_bytes=free, plain_f32_copy=copy, requested=requested,
+    )
+    assert rows == chunk
+    row_bytes = 2_048 + (1_024 if copy else 0)
+    sweep = -(-(rows or 100_000) // 128) * 128
+    assert need == 10**6 + sweep * row_bytes
+    assert budget == (None if free is None else free // 4)
+    if free is not None and requested is None and rows > 4_096:
+        assert need <= budget  # an auto chunk above the floor fits
