@@ -4,11 +4,18 @@ recorded in PERF.md).
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. build the hand-written kernels (osr_tpu_torch/csrc: head.cu, matmul.cu,
-   quantize.cu) with nvcc, one process per source, all at once;
+1. build the hand-written kernels (osr_tpu_torch/csrc: head.cu,
+   head_wgmma.cu, matmul.cu, quantize.cu) with nvcc, one process per
+   source, all at once; print each kernel's registers and shared memory
+   (ptxas, plus the dynamic shared memory of the int4 kernels), failing if
+   ptxas serialized a wgmma pipeline; check that the SASS of both int4
+   kernels (K3, K4-i4) holds HGMMA and UTMALDG (wgmma and TMA loads);
 2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
    a ragged small shape and at the FiQA bench shape (the main path's own
-   inputs), with the tolerance of tests/test_torch_head.py; time each
+   inputs), with the tolerance of tests/test_torch_head.py, and K3 and
+   K4-i4 at the edges of the int4 kernel's TMA ring (packed widths 16 to
+   1,024, B and R off the 128 tiles, invalid rows in the last block); time
+   each
    kernel, its plain version and a one-call PyTorch yardstick; hold K4
    (the per-block top-m extraction, int8 and int4, m in 1, 4, 8) against
    its plain twin at R=700, F=160, B=9: bit-equal on exact-sum inputs,
@@ -60,6 +67,7 @@ a result when no CUDA device is available. Run: python3 chip_smoke.py
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -108,7 +116,8 @@ DENSE_KERNELS = {
 }
 KERNELS = {**HEAD_KERNELS, **TOPM_KERNELS, **DENSE_KERNELS}
 SOURCES = {
-    "head.cu": (*HEAD_KERNELS, *TOPM_KERNELS),
+    "head.cu": ("head_scores_i8", "head_blockmax_i8", "head_blocktopm_i8"),
+    "head_wgmma.cu": ("head_blockmax_i4", "head_blocktopm_i4"),
     "matmul.cu": ("int8_similarity", "int4_similarity"),
     "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
                     "dequantize_symmetric"),
@@ -117,11 +126,11 @@ SOURCE_OF = {k: f"osr_tpu_torch/csrc/{src}" for src, ks in SOURCES.items()
              for k in ks}
 # ptxas function-name fragments of the instantiations the paths launch.
 MANGLED = {
-    "head_scores_kernelILb0ELi0E": "head_scores_i8",
-    "head_scores_kernelILb0ELi1E": "head_blockmax_i8",
-    "head_scores_kernelILb1ELi1E": "head_blockmax_i4",
-    "head_scores_kernelILb0ELi2E": "head_blocktopm_i8",
-    "head_scores_kernelILb1ELi2E": "head_blocktopm_i4",
+    "head_scores_kernelILi0E": "head_scores_i8",
+    "head_scores_kernelILi1E": "head_blockmax_i8",
+    "head_scores_kernelILi2E": "head_blocktopm_i8",
+    "head_i4_kernelILi0E": "head_blockmax_i4",
+    "head_i4_kernelILi1E": "head_blocktopm_i4",
     "similarity_kernelILb0ELb1E": "int8_similarity",
     "similarity_kernelILb1ELb1E": "int4_similarity",
     "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
@@ -147,10 +156,12 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_registers():
-    """Registers per thread of each kernel as ptxas reports them
-    (``nvcc --resource-usage``, one process per source, run at once); the
-    count sets blocks per SM."""
+def kernel_resources():
+    """(registers per thread, shared memory bytes per block) of each kernel
+    as ptxas reports them (``nvcc --resource-usage``, one process per
+    source, run at once), plus the dynamic shared memory the int4 kernels
+    request at launch; both set blocks per SM. Fails if ptxas serialized
+    a wgmma pipeline (its C7513/C7515 warnings)."""
     from osr_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
@@ -167,20 +178,61 @@ def kernel_registers():
     for obj, proc in procs:  # wait for every nvcc before judging any
         outs.append(proc.communicate(timeout=600)[0])
         obj.unlink(missing_ok=True)
-    regs, current = {}, None
+    regs, smem, current = {}, {}, None
     for (_, proc), out in zip(procs, outs):
         if proc.returncode != 0:
             fail(f"nvcc --resource-usage failed:\n{out}")
+        if "instructions are serialized" in out:
+            fail(f"ptxas serialized a wgmma pipeline:\n{out}")
         for line in out.splitlines():
             current = next(
                 (n for m, n in MANGLED.items() if m in line), current
             )
             if "registers" in line and current is not None:
                 regs[current] = int(line.split("Used ")[1].split()[0])
+                found = re.search(r"(\d+) bytes smem", line)
+                smem[current] = int(found.group(1)) if found else 0
                 current = None
     if set(regs) != set(KERNELS):
         fail(f"ptxas reported registers for {sorted(regs)} only")
-    return regs
+    dynamic = _build.library("head_wgmma").osr_head_i4_smem_bytes()
+    for name in SOURCES["head_wgmma.cu"]:
+        smem[name] += dynamic
+    return regs, smem
+
+
+def check_sass():
+    """The int4 kernels' SASS (cuobjdump, beside nvcc) must hold HGMMA
+    (wgmma) and UTMALDG (TMA tensor loads). Returns the counts of both in
+    each int4 kernel."""
+    from pathlib import Path
+
+    from osr_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    lib = _build._target(_build.CSRC / "head_wgmma.cu")
+    out = subprocess.run(
+        [str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+        timeout=300,
+    )
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed:\n{out.stderr}")
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            current = next(
+                (n for m, n in MANGLED.items() if m in line), None
+            )
+            if current is not None:
+                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
+        elif current is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[current][op] += op in line
+    for name in SOURCES["head_wgmma.cu"]:
+        if not all(counts.get(name, {}).get(op) for op in ("HGMMA",
+                                                             "UTMALDG")):
+            fail(f"{name}: no HGMMA or no UTMALDG in its SASS ({counts})")
+    return counts
 
 
 def median_ms(fn, reps, warmup=2):
@@ -329,12 +381,14 @@ def small_case(name, dev):
     ]
 
 
-def blocktopm_case(dtype, exact_sum, dev, b=9, r=700, f=160, seed=7):
+def blocktopm_case(dtype, exact_sum, dev, b=9, r=700, f=160, seed=7,
+                   fp=None):
     """K4's small inputs: R off the 128-row tile (a ragged last block),
     B off the 128-query tile, invalid rows. Exact-sum inputs (power-of-two
     column scales, integer query counts, codes from a few levels) make
     every dot exact in f32 whatever the summation order, and hold many
-    real ties."""
+    real ties. An int4 head has packed width fp (f / 2 by default; columns
+    f and up are zero)."""
     rng = np.random.RandomState(seed)
     lo, hi = ((-2, 3) if exact_sum else (-127, 128)) if dtype == "int8" else (
         (0, 3) if exact_sum else (0, 16)
@@ -342,9 +396,11 @@ def blocktopm_case(dtype, exact_sum, dev, b=9, r=700, f=160, seed=7):
     codes = rng.randint(lo, hi, (r, f))
     if dtype == "int8":
         head = codes.astype(np.int8)
-    else:  # block-packed: byte c holds columns c and f/2 + c
-        codes = codes.astype(np.uint8)
-        head = codes[:, : f // 2] | (codes[:, f // 2 :] << 4)
+    else:  # block-packed: byte c holds columns c and fp + c
+        fp = f // 2 if fp is None else fp
+        full = np.zeros((r, 2 * fp), np.uint8)
+        full[:, :f] = codes
+        head = full[:, :fp] | (full[:, fp:] << 4)
     if exact_sum:
         scales = (2.0 ** -rng.randint(2, 6, f)).astype(np.float32)
         qhead = rng.randint(1, 3, (b, f)) * (rng.rand(b, f) < 0.05)
@@ -474,6 +530,36 @@ def blocktopm_numbers(name, head, scales, qhead, valid, m=NARROW_M):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
     }
+
+
+# The int4 kernel's TMA ring edges: (B, R, packed width, logical F).
+INT4_RING_CASES = (
+    (1, 1, 16, 32), (64, 127, 16, 20), (130, 129, 48, 96),
+    (257, 1031, 48, 77), (1, 129, 64, 128), (64, 1031, 64, 100),
+    (257, 127, 80, 160), (130, 1, 80, 97), (64, 129, 96, 192),
+    (257, 1031, 96, 150), (1, 1031, 1024, 2048), (130, 127, 1024, 1500),
+)
+
+
+def int4_ring_checks(dev):
+    """K3 and K4-i4 at the edges of the TMA ring (INT4_RING_CASES), every
+    other row of the last 128-row block invalid: K3 within the tolerance of
+    its plain version and K4-i4 (m=8) equal to the per-block top-8 of K3's
+    own scores on random inputs; K4-i4 bit-equal to its plain twin on
+    exact-sum ones."""
+    for b, r, fp, f in INT4_RING_CASES:
+        cases = []
+        for exact_sum in (False, True):
+            args = blocktopm_case("int4", exact_sum, dev, b=b, r=r, f=f,
+                                  seed=r + fp, fp=fp)
+            args[3][(r - 1) // 128 * 128 + 1 :: 2] = False
+            cases.append(args)
+        err = check_kernel("head_blockmax_i4", *cases[0])
+        blocktopm_is_topm_of_blockmax(*cases[0])
+        check_blocktopm(*cases[1], NARROW_M, exact_sum=True)
+        log(f"int4 ring edge B={b} R={r} packed width {fp} F={f}: K3 "
+            f"max_abs_err={err:.3e}; K4-i4 equals K3's per-block top-"
+            f"{NARROW_M} and its exact-sum plain twin")
 
 
 def blocktopm_small_checks(dev):
@@ -1278,12 +1364,16 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    log(f"registers per thread (ptxas): {kernel_registers()}")
+    regs, smem = kernel_resources()
+    log(f"registers per thread (ptxas): {regs}")
+    log(f"shared memory per block, bytes (ptxas static + dynamic): {smem}")
+    log(f"int4 kernels' SASS, HGMMA and UTMALDG counts: {check_sass()}")
     log(f"host runtime: native={native.available()}")
 
     for name in HEAD_KERNELS:
         err = check_kernel(name, *small_case(name, dev))
         log(f"small ragged check {name}: max_abs_err={err:.3e}")
+    int4_ring_checks(dev)
     blocktopm_small_checks(dev)
     dense_small_checks(dev)
 

@@ -1,38 +1,39 @@
-// Masked sparse-head scoring kernels for Hopper (sm_90a).
+// Masked int8 sparse-head scoring kernels for Hopper (sm_90a).
 //
-// Replaces the Pallas kernels of osr_tpu/ops/pallas/head.py:
-//   K1 _head_kernel              (int8 head, scores only)
-//   K2 _head_blockmax_kernel     (int8 head, scores + per-128-row maxima)
-//   K3 _head_blockmax_kernel_i4  (block-packed int4 head, same outputs)
-//   K4 _make_blocktopm_kernel + _blocktopm_epilogue (int8 or int4 head,
-//      per-128-row-block top-m (value, row); the scores are never written)
+// Replaces the Pallas kernels of osr_tpu/ops/pallas/head.py for the int8
+// head:
+//   K1    _head_kernel           (scores only)
+//   K2    _head_blockmax_kernel  (scores + per-128-row maxima)
+//   K4-i8 _make_blocktopm_kernel + _blocktopm_epilogue (per-128-row-block
+//         top-m (value, row); the scores are never written)
+// The int4 family (K3, K4-i4) lives in head_wgmma.cu; the entry points
+// here refuse int4 = 1.
 //
-// What it computes, for a query batch q (B, QW) bf16 whose per-column head
+// What it computes, for a query batch q (B, HW) bf16 whose per-column head
 // scales are already folded in and rounded to bf16 by the wrapper:
 //   s[b, r]    = valid[r] ? sum_f q[b, f] * head[r, f] : -inf   (f32 accum)
-//   out[b, r]  = s[b, r]                                  (K1, K2, K3)
-//   bmax[g, b] = max over r in [128 g, 128 g + 128) of s[b, r]  (K2, K3)
+//   out[b, r]  = s[b, r]                                  (K1, K2)
+//   bmax[g, b] = max over r in [128 g, 128 g + 128) of s[b, r]  (K2)
 //   vals[b, g, :m], rows[b, g, :m] = the m largest s[b, r] of block g in
 //     descending order, ties to the lowest row, and equal values in row
 //     order across ranks (K4): a stable descending sort's first m
-// with rows r >= R counted as -inf. int8 and int4 codes are exact in bf16,
-// so each product is exact and only the f32 summation order differs from
-// the plain PyTorch version (ops/head.py).
+// with rows r >= R counted as -inf. int8 codes are exact in bf16, so each
+// product is exact and only the f32 summation order differs from the
+// plain PyTorch version (ops/head.py).
 //
 // Design. One thread block owns a (128 queries x 128 head rows) output
 // tile, so its rows are exactly one 128-row pruning block: the block
-// maximum (K2, K3) and the block top-m (K4) are computed inside the thread
+// maximum (K2) and the block top-m (K4) are computed inside the thread
 // block, with no second pass over the (B, R) score matrix and no atomics.
-// The contraction walks the head width in chunks of 64 logical columns
-// staged through shared memory: the head chunk is loaded as int8 (or as
-// packed bytes decoded to their two nibble halves) and converted to bf16
-// while it is stored; the query chunk is copied as is. The next chunk's
-// global loads are issued into registers before the current chunk is
-// multiplied. Eight warps (2 along queries x 4 along rows) each run bf16
+// The contraction walks the head width in chunks of 64 columns staged
+// through shared memory: the head chunk is loaded as int8 and converted to
+// bf16 while it is stored; the query chunk is copied as is. The next
+// chunk's global loads are issued into registers before the current chunk
+// is multiplied. Eight warps (2 along queries x 4 along rows) each run bf16
 // mma.sync m16n8k16 with f32 accumulators on a 64 x 32 sub-tile, fed by
-// ldmatrix from padded (conflict-free) rows. All four kernels share this
-// main loop, so K4's values are bit for bit the per-block top-m of K2's and
-// K3's own scores.
+// ldmatrix from padded (conflict-free) rows. All three kernels share this
+// main loop, so K4's values are bit for bit the per-block top-m of K2's own
+// scores.
 //
 // K4's epilogue. In a warp, the four lanes of one accumulator row hold 8
 // scores each of one query's 32 rows. The warp takes the top m of its 32
@@ -44,16 +45,17 @@
 // them, taking the lower warp's entry on equal values: that is row order.
 // The (B, G, m) values and int32 block-global rows are written directly.
 //
-// Bound on an H100: the tensor cores, for all four kernels. At the FiQA
+// Bound on an H100: the tensor cores, for all three kernels. At the FiQA
 // bench shape (B=3,328, R=57,728, F=2,048): 7.87e11 FLOP against 989
 // TFLOP/s bf16 is 0.7957 ms, while the bytes (head read once, queries, the
 // (B, R) f32 scores and the maxima written once) take 0.27 ms at 3.35 TB/s.
 // K4 does the same FLOPs and writes 2 B G m values instead of B R: per 1M
 // corpus chunk (B=2,048, R=500,096, F=2,048, m=8), 4.195e12 FLOP is 4.24
 // ms against 0.46 ms of bytes. mma.sync reaches only part of the wgmma
-// rate; TMA and wgmma are the next step for speed. Block order walks the
-// query tiles of one head row tile first, so the head tile is read from
-// HBM about once and re-read from L2 by the other query tiles.
+// rate; head_wgmma.cu's TMA + wgmma loop is the next step for speed.
+// Block order walks the query tiles of one head row tile first, so the
+// head tile is read from HBM about once and re-read from L2 by the other
+// query tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +75,7 @@ constexpr int kWarpsN = kTileN / kWarpN;  // 4 warps along the rows
 
 // Epilogues of the one kernel template.
 constexpr int kEpiScores = 0;    // K1: masked scores
-constexpr int kEpiBlockMax = 1;  // K2, K3: masked scores + block maxima
+constexpr int kEpiBlockMax = 1;  // K2: masked scores + block maxima
 constexpr int kEpiTopM = 2;      // K4: per-block top-m (value, row)
 
 constexpr int kMaxM = 16;  // K4's largest m (ops/head.py:BLOCKTOPM_MAX_M)
@@ -106,26 +108,6 @@ __device__ __forceinline__ void int8x16_to_bf16(uint4 v, uint4* dst) {
   dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-// 16 packed bytes -> their 16 low nibbles and 16 high nibbles as bf16
-// (unsigned codes 0..15; the signed column scale lives on the query side).
-__device__ __forceinline__ void int4x32_to_bf16(uint4 v, uint4* lo,
-                                                uint4* hi) {
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-  uint32_t l[8], h[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint8_t x = b[2 * i], y = b[2 * i + 1];
-    l[i] = pack_bf16x2(static_cast<float>(x & 0xF),
-                       static_cast<float>(y & 0xF));
-    h[i] = pack_bf16x2(static_cast<float>(x >> 4),
-                       static_cast<float>(y >> 4));
-  }
-  lo[0] = make_uint4(l[0], l[1], l[2], l[3]);
-  lo[1] = make_uint4(l[4], l[5], l[6], l[7]);
-  hi[0] = make_uint4(h[0], h[1], h[2], h[3]);
-  hi[1] = make_uint4(h[4], h[5], h[6], h[7]);
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   const unsigned addr =
       static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -144,14 +126,13 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// q:     (B, QW) bf16, QW = HW (int8) or 2 HW (int4); QW % 16 == 0
-// head:  (R, HW) int8, or (R, HW) packed uint8 (low nibble of byte c is
-//        logical column c, high nibble is column HW + c); HW % 16 == 0
+// q:     (B, HW) bf16
+// head:  (R, HW) int8; HW % 16 == 0
 // valid: (R,) bool
 // K1:    out (B, R) f32
-// K2/K3: out (B, R) f32;  aux (G, B) f32 block maxima, G = ceil(R / 128)
+// K2:    out (B, R) f32;  aux (G, B) f32 block maxima, G = ceil(R / 128)
 // K4:    out (B, G, m) f32 values;  rows (B, G, m) int32;  1 <= m <= kMaxM
-template <bool kInt4, int kEpi>
+template <int kEpi>
 __global__ void __launch_bounds__(kThreads)
     head_scores_kernel(const __nv_bfloat16* __restrict__ q,
                        const uint8_t* __restrict__ head,
@@ -173,46 +154,34 @@ __global__ void __launch_bounds__(kThreads)
   const int rt = blockIdx.x / n_qtiles;
   const int m0 = qt * kTileM;
   const int n0 = rt * kTileN;
-  const int QW = kInt4 ? 2 * HW : HW;
-  // Head bytes consumed per chunk: 64 int8 columns, or 32 packed bytes
-  // that decode to 32 low + 32 high logical columns.
-  constexpr int kChunkBytes = kInt4 ? kChunk / 2 : kChunk;
-  const int n_chunks = (HW + kChunkBytes - 1) / kChunkBytes;
+  const int n_chunks = (HW + kChunk - 1) / kChunk;
 
-  // Register staging for one chunk: 4 x 8 bf16 of q and 2 x 16 (int8) or
-  // 1 x 16 (int4) bytes of head per thread.
-  constexpr int kHeadVecs = kInt4 ? 1 : 2;
+  // Register staging for one chunk: 4 x 8 bf16 of q and 2 x 16 bytes of
+  // head per thread.
+  constexpr int kHeadVecs = 2;
   uint4 qreg[4];
   uint4 hreg[kHeadVecs];
 
   auto load_chunk = [&](int c) {
-    const int k0 = c * kChunkBytes;
+    const int k0 = c * kChunk;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * kThreads;
       const int row = idx >> 3;
       const int seg = idx & 7;  // 8 bf16 per segment
-      int col;
-      bool in_k;
-      if (kInt4) {
-        const int p = k0 + (seg & 3) * 8;
-        in_k = p < HW;
-        col = (seg < 4) ? p : HW + p;
-      } else {
-        col = k0 + seg * 8;
-        in_k = col < HW;
-      }
+      const int col = k0 + seg * 8;
+      const bool in_k = col < HW;
       const int mq = m0 + row;
       qreg[i] = (in_k && mq < B)
                     ? *reinterpret_cast<const uint4*>(
-                          q + static_cast<size_t>(mq) * QW + col)
+                          q + static_cast<size_t>(mq) * HW + col)
                     : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int i = 0; i < kHeadVecs; ++i) {
       const int idx = tid + i * kThreads;
-      const int row = kInt4 ? (idx >> 1) : (idx >> 2);
-      const int seg = kInt4 ? (idx & 1) : (idx & 3);
+      const int row = idx >> 2;
+      const int seg = idx & 3;
       const int col = k0 + seg * 16;
       const int r = n0 + row;
       hreg[i] = (col < HW && r < R)
@@ -231,25 +200,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kHeadVecs; ++i) {
       const int idx = tid + i * kThreads;
-      if (kInt4) {
-        const int row = idx >> 1, seg = idx & 1;
-        uint4 lo[2], hi[2];
-        int4x32_to_bf16(hreg[i], lo, hi);
-        uint4* dl = reinterpret_cast<uint4*>(&sh[row][seg * 16]);
-        uint4* dh =
-            reinterpret_cast<uint4*>(&sh[row][kChunk / 2 + seg * 16]);
-        dl[0] = lo[0];
-        dl[1] = lo[1];
-        dh[0] = hi[0];
-        dh[1] = hi[1];
-      } else {
-        const int row = idx >> 2, seg = idx & 3;
-        uint4 v[2];
-        int8x16_to_bf16(hreg[i], v);
-        uint4* d = reinterpret_cast<uint4*>(&sh[row][seg * 16]);
-        d[0] = v[0];
-        d[1] = v[1];
-      }
+      const int row = idx >> 2, seg = idx & 3;
+      uint4 v[2];
+      int8x16_to_bf16(hreg[i], v);
+      uint4* d = reinterpret_cast<uint4*>(&sh[row][seg * 16]);
+      d[0] = v[0];
+      d[1] = v[1];
     }
   };
 
@@ -429,7 +385,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kInt4, int kEpi>
+template <int kEpi>
 int launch(const void* q, const void* head, const void* valid, void* out,
            void* aux, void* rows, int B, int R, int HW, int m,
            cudaStream_t stream) {
@@ -438,7 +394,7 @@ int launch(const void* q, const void* head, const void* valid, void* out,
   const long long blocks = static_cast<long long>(n_qtiles) * n_rtiles;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  head_scores_kernel<kInt4, kEpi>
+  head_scores_kernel<kEpi>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const uint8_t*>(head),
@@ -455,45 +411,36 @@ bool bad_shape(int B, int R, int HW) {
 }  // namespace
 
 // Returns a cudaError_t value: 0 on a successful launch.
-// (int4, blockmax) = (0, 0) K1, (0, 1) K2, (1, 1) K3; (1, 0) is refused.
+// blockmax = 0 is K1, 1 is K2. int4 = 1 is refused: the int4 head's
+// kernels are in head_wgmma.cu.
 extern "C" int osr_head_scores(const void* q, const void* head,
                                const void* valid, void* out, void* bmax,
                                int B, int R, int HW, int int4, int blockmax,
                                void* stream) {
-  if (bad_shape(B, R, HW)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, R, HW) || int4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!int4 && !blockmax) {
-    return launch<false, kEpiScores>(q, head, valid, out, bmax, nullptr, B,
-                                     R, HW, 0, s);
+  if (blockmax) {
+    return launch<kEpiBlockMax>(q, head, valid, out, bmax, nullptr, B, R,
+                                HW, 0, s);
   }
-  if (!int4 && blockmax) {
-    return launch<false, kEpiBlockMax>(q, head, valid, out, bmax, nullptr,
-                                       B, R, HW, 0, s);
-  }
-  if (int4 && blockmax) {
-    return launch<true, kEpiBlockMax>(q, head, valid, out, bmax, nullptr, B,
-                                      R, HW, 0, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kEpiScores>(q, head, valid, out, bmax, nullptr, B, R, HW, 0,
+                            s);
 }
 
-// K4: per-128-row-block top-m values (B, G, m) f32 and rows (B, G, m)
-// int32, for an int8 (int4 = 0) or block-packed int4 (int4 = 1) head.
-// Returns a cudaError_t value: 0 on a successful launch.
+// K4-i8: per-128-row-block top-m values (B, G, m) f32 and rows (B, G, m)
+// int32 of an int8 head; int4 = 1 is refused (head_wgmma.cu). Returns a
+// cudaError_t value: 0 on a successful launch.
 extern "C" int osr_head_blocktopm(const void* q, const void* head,
                                   const void* valid, void* vals, void* rows,
                                   int B, int R, int HW, int int4, int m,
                                   void* stream) {
-  if (bad_shape(B, R, HW) || m < 1 || m > kMaxM) {
+  if (bad_shape(B, R, HW) || int4 || m < 1 || m > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int4) {
-    return launch<true, kEpiTopM>(q, head, valid, vals, nullptr, rows, B, R,
-                                  HW, m, s);
-  }
-  return launch<false, kEpiTopM>(q, head, valid, vals, nullptr, rows, B, R,
-                                 HW, m, s);
+  return launch<kEpiTopM>(q, head, valid, vals, nullptr, rows, B, R, HW, m,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* osr_cuda_error_string(int code) {

@@ -61,6 +61,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.osr_head_blocktopm.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
         ]
+    elif name == "head_wgmma":
+        lib.osr_head_i4_blockmax.restype = ci
+        lib.osr_head_i4_blockmax.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, vp,
+        ]
+        lib.osr_head_i4_blocktopm.restype = ci
+        lib.osr_head_i4_blocktopm.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
+        ]
+        lib.osr_head_i4_smem_bytes.restype = ci
+        lib.osr_head_i4_smem_bytes.argtypes = []
     elif name == "matmul":
         lib.osr_similarity.restype = ci
         lib.osr_similarity.argtypes = [

@@ -23,17 +23,22 @@ Wrappers, each with its plain version beside it:
   ``_make_blocktopm_kernel`` and ``_blocktopm_epilogue`` (via
   ``head_blocktopm_pallas`` and ``masked_head_blocktopm``).
 
-All four are one templated CUDA kernel (``csrc/head.cu``) with three
-epilogues over one main loop, so K4's values are bit for bit the per-block
-top-m of K2's (K3's) scores. Bound on an H100 at the bench shape (B=3,328,
-R=57,728, F=2,048): 7.87e11 FLOP over 989 TFLOP/s bf16 = 0.7957 ms
-against 0.27 ms of bytes, so the tensor cores bound it; K4 per 1M-corpus
-chunk (B=2,048, R=500,096): 4.24 ms against 0.46 ms of bytes. Its design
-answers that with one (128 x 128) output tile per thread block fed to bf16
-``mma.sync`` from shared memory, the block maxima or top-m taken inside
-the block (no second pass over the (B, R) matrix), and a block order that
-keeps each head tile in L2 while every query tile reads it. Details at the
-top of ``csrc/head.cu``.
+Two CUDA sources, split by the head's dtype. The int8 family (K1, K2,
+K4-i8) is one templated kernel with three epilogues over one bf16
+``mma.sync`` main loop (``csrc/head.cu``). The int4 family (K3, K4-i4) is
+one kernel with two epilogues over a Hopper main loop
+(``csrc/head_wgmma.cu``): a TMA ring of packed-head and query tiles, the
+nibbles decoded to bf16 in registers, and ``wgmma`` with the head as its
+register operand and f32 accumulators. Within a family the epilogues
+share the main loop, so K4's values are bit for bit the per-block top-m
+of K2's (K3's) scores. Bound on an H100 at the bench
+shape (B=3,328, R=57,728, F=2,048): 7.87e11 FLOP over 989 TFLOP/s bf16 =
+0.7957 ms against 0.27 ms of bytes, so the tensor cores bound them; K4
+per 1M-corpus chunk (B=2,048, R=500,096): 4.24 ms against 0.46 ms of
+bytes. Both designs own one (128 x 128) output tile per thread block, take
+the block maxima or top-m inside the block (no second pass over the (B, R)
+matrix), and order blocks so that each head tile stays in L2 while every
+query tile reads it. Details at the top of each source.
 
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
@@ -50,7 +55,8 @@ from osr_tpu_torch.ops.topk import block_max, block_topm
 
 ROW_TILE = 128  # the kernels' head-row tile: one 128-row pruning block
 COL_ALIGN = 16  # the kernels' head-width alignment, in bytes
-BLOCKTOPM_MAX_M = 16  # K4's largest m (csrc/head.cu:kMaxM)
+PTR_ALIGN = 16  # TMA's base-pointer alignment (int4 kernels), in bytes
+BLOCKTOPM_MAX_M = 16  # K4's largest m (csrc/head.cu, head_wgmma.cu: kMaxM)
 
 LAUNCHES: Dict[str, int] = {
     "head_scores_i8": 0,  # K1
@@ -177,6 +183,14 @@ def _check_operands(head, head_scales, qhead, valid):
         )
     if not head.is_contiguous():
         raise ValueError("head must be contiguous")
+    # The int4 kernels load the head through TMA, which takes a 16-byte
+    # aligned base; a row-chunk view of a head whose width is a multiple of
+    # 16 is aligned. Raise rather than copy.
+    if head.dtype == torch.uint8 and head.data_ptr() % PTR_ALIGN:
+        raise ValueError(
+            f"head starts at an address that is not a multiple of "
+            f"{PTR_ALIGN} bytes"
+        )
     if head.shape[1] % COL_ALIGN:
         raise ValueError(
             f"head width {head.shape[1]} is not a multiple of {COL_ALIGN}; "
@@ -205,12 +219,13 @@ def _check_operands(head, head_scales, qhead, valid):
         raise ValueError("kernel dimensions must fit int32")
 
 
-def _launch(entry: str, name: str, device, *args) -> None:
-    """Call the C entry point ``entry`` of ``csrc/head.cu`` with ``args``
-    and the current stream; raise on a CUDA error, count the launch."""
+def _launch(lib_name: str, entry: str, name: str, device, *args) -> None:
+    """Call the C entry point ``entry`` of ``csrc/<lib_name>.cu`` with
+    ``args`` and the current stream; raise on a CUDA error, count the
+    launch."""
     from osr_tpu_torch.ops import _build
 
-    lib = _build.library("head")
+    lib = _build.library(lib_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     code = getattr(lib, entry)(*args, stream)
     _build.check(lib, code, name)
@@ -244,9 +259,9 @@ def masked_head_scores(
             device=head.device,
         )
         _launch(
-            "osr_head_scores", "head_scores_i8", head.device, q.data_ptr(),
-            head.data_ptr(), valid.data_ptr(), out.data_ptr(), None,
-            q.shape[0], head.shape[0], head.shape[1], 0, 0,
+            "head", "osr_head_scores", "head_scores_i8", head.device,
+            q.data_ptr(), head.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            None, q.shape[0], head.shape[0], head.shape[1], 0, 0,
         )
     return out
 
@@ -275,13 +290,19 @@ def masked_head_scores_blockmax(
         g = -(-r // ROW_TILE)
         out = torch.empty((b, r), dtype=torch.float32, device=head.device)
         bmax = torch.empty((g, b), dtype=torch.float32, device=head.device)
-        _launch(
-            "osr_head_scores",
-            "head_blockmax_i4" if int4 else "head_blockmax_i8",
-            head.device, q.data_ptr(), head.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), bmax.data_ptr(), b, r, head.shape[1], int(int4),
-            1,
-        )
+        if int4:
+            _launch(
+                "head_wgmma", "osr_head_i4_blockmax", "head_blockmax_i4",
+                head.device, q.data_ptr(), head.data_ptr(),
+                valid.data_ptr(), out.data_ptr(), bmax.data_ptr(), b, r,
+                head.shape[1],
+            )
+        else:
+            _launch(
+                "head", "osr_head_scores", "head_blockmax_i8", head.device,
+                q.data_ptr(), head.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), bmax.data_ptr(), b, r, head.shape[1], 0, 1,
+            )
     return out, bmax.T
 
 
@@ -318,9 +339,16 @@ def masked_head_blocktopm(
         g = -(-r // ROW_TILE)
         vals = torch.empty((b, g, m), dtype=torch.float32, device=head.device)
         rows = torch.empty((b, g, m), dtype=torch.int32, device=head.device)
-        _launch(
-            "osr_head_blocktopm", name, head.device, q.data_ptr(),
-            head.data_ptr(), valid.data_ptr(), vals.data_ptr(),
-            rows.data_ptr(), b, r, head.shape[1], int(int4), m,
-        )
+        if int4:
+            _launch(
+                "head_wgmma", "osr_head_i4_blocktopm", name, head.device,
+                q.data_ptr(), head.data_ptr(), valid.data_ptr(),
+                vals.data_ptr(), rows.data_ptr(), b, r, head.shape[1], m,
+            )
+        else:
+            _launch(
+                "head", "osr_head_blocktopm", name, head.device,
+                q.data_ptr(), head.data_ptr(), valid.data_ptr(),
+                vals.data_ptr(), rows.data_ptr(), b, r, head.shape[1], 0, m,
+            )
     return vals, rows

@@ -48,11 +48,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dtype, seed, b, r, f, exact_sum):
+def _case(dtype, seed, b, r, f, exact_sum, fp=128):
     """(head, scales, qhead, valid, codes (R, f) float64). int4 heads are
-    block-packed with a 128-aligned packed width, as the Pallas int4
-    kernel needs. Exact-sum cases draw codes from a few levels, so many
-    dots tie."""
+    block-packed with packed width fp (f <= 2 fp), 128 by default as the
+    Pallas int4 kernel needs. Exact-sum cases draw codes from a few
+    levels, so many dots tie."""
     rng = np.random.RandomState(seed)
     if dtype == "int8":
         codes = (
@@ -62,7 +62,6 @@ def _case(dtype, seed, b, r, f, exact_sum):
         head = codes
         fp = f
     else:
-        fp = 128
         full = (
             rng.randint(0, 3, (r, 2 * fp)) if exact_sum
             else rng.randint(0, 16, (r, 2 * fp))
@@ -277,23 +276,47 @@ def test_fused_search_extract_refuses_unknown_backend():
 # ----------------------------------------------------------------------
 
 CARD_CASES = [
-    # (dtype, B, R, F, m, exact_sum)
-    ("int8", 9, 700, 160, 1, True),
-    ("int8", 9, 700, 160, 4, True),
-    ("int8", 9, 700, 160, 8, True),
-    ("int4", 9, 700, 160, 1, True),
-    ("int4", 9, 700, 160, 4, True),
-    ("int4", 9, 700, 160, 16, True),
-    ("int8", 257, 1031, 160, 8, False),
-    ("int4", 257, 1031, 160, 8, False),
+    # (dtype, B, R, F, m, exact_sum, int4 packed width)
+    ("int8", 9, 700, 160, 1, True, None),
+    ("int8", 9, 700, 160, 4, True, None),
+    ("int8", 9, 700, 160, 8, True, None),
+    ("int4", 9, 700, 160, 1, True, 128),
+    ("int4", 9, 700, 160, 4, True, 128),
+    ("int4", 9, 700, 160, 16, True, 128),
+    ("int8", 257, 1031, 160, 8, False, None),
+    ("int4", 257, 1031, 160, 8, False, 128),
+    # The int4 kernel's TMA ring takes 64 packed bytes a stage: packed
+    # widths below, at and off a stage, B and R off the 128 tiles.
+    ("int4", 1, 1, 32, 1, True, 16),
+    ("int4", 64, 127, 20, 8, True, 16),
+    ("int4", 130, 129, 96, 4, True, 48),
+    ("int4", 257, 1031, 77, 8, False, 48),
+    ("int4", 1, 129, 128, 16, True, 64),
+    ("int4", 64, 1031, 100, 8, True, 64),
+    ("int4", 257, 127, 160, 8, True, 80),
+    ("int4", 130, 1, 97, 1, False, 80),
+    ("int4", 64, 129, 192, 8, True, 96),
+    ("int4", 257, 1031, 150, 16, False, 96),
+    ("int4", 1, 1031, 2048, 8, True, 1024),
+    ("int4", 130, 127, 1500, 8, False, 1024),
 ]
 
 
+def _invalidate_last_block(valid):
+    """Every other row of the last 128-row block invalid, from its second
+    row on."""
+    valid[(len(valid) - 1) // 128 * 128 + 1 :: 2] = False
+    return valid
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,r,f,m,exact_sum", CARD_CASES)
+@pytest.mark.parametrize("dtype,b,r,f,m,exact_sum,fp", CARD_CASES)
 def test_blocktopm_kernel_matches_plain_on_card(cuda, dtype, b, r, f, m,
-                                                exact_sum):
-    head, scales, qhead, valid, codes = _case(dtype, 7, b, r, f, exact_sum)
+                                                exact_sum, fp):
+    head, scales, qhead, valid, codes = _case(
+        dtype, 7, b, r, f, exact_sum, fp=fp
+    )
+    valid = _invalidate_last_block(valid)
     args = _t(head, scales, qhead, valid, device=cuda)
     name = f"head_blocktopm_{'i4' if dtype == 'int4' else 'i8'}"
     before = thead.LAUNCHES[name]
@@ -314,11 +337,25 @@ def test_blocktopm_kernel_matches_plain_on_card(cuda, dtype, b, r, f, m,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["int8", "int4"])
-def test_blocktopm_kernel_is_topm_of_blockmax_kernel(cuda, dtype):
+@pytest.mark.parametrize(
+    "dtype,b,r,f,fp",
+    [
+        ("int8", 300, 4000, 160, None),
+        ("int4", 300, 4000, 160, 128),
+        ("int4", 1, 1, 20, 16),
+        ("int4", 130, 129, 96, 48),
+        ("int4", 257, 1031, 128, 64),
+        ("int4", 64, 127, 150, 80),
+        ("int4", 257, 1031, 192, 96),
+        ("int4", 130, 4000, 2048, 1024),
+    ],
+)
+def test_blocktopm_kernel_is_topm_of_blockmax_kernel(cuda, dtype, b, r, f,
+                                                     fp):
     """K4 and K2/K3 share their main loop: K4's values and rows are the
     stable per-block top-m of K2's (K3's) own scores, bit for bit."""
-    head, scales, qhead, valid, _ = _case(dtype, 3, 300, 4000, 160, False)
+    head, scales, qhead, valid, _ = _case(dtype, 3, b, r, f, False, fp=fp)
+    valid = _invalidate_last_block(valid)
     args = _t(head, scales, qhead, valid, device=cuda)
     scores, _ = thead.masked_head_scores_blockmax(*args)
     got_v, got_r = thead.masked_head_blocktopm(*args, m=8)

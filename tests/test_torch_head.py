@@ -257,7 +257,28 @@ KERNEL_CASES = [
     ("head_scores_i8", 257, 1031, 2048, 2048),
     ("head_blockmax_i8", 257, 1031, 2048, 2048),
     ("head_blockmax_i4", 257, 1031, 1024, 2048),
+    # The int4 kernel's TMA ring takes 64 packed bytes a stage: packed
+    # widths below, at and off a stage, B and R off the 128 tiles.
+    ("head_blockmax_i4", 1, 1, 16, 32),
+    ("head_blockmax_i4", 64, 127, 16, 20),
+    ("head_blockmax_i4", 130, 129, 48, 96),
+    ("head_blockmax_i4", 257, 1031, 48, 77),
+    ("head_blockmax_i4", 1, 129, 64, 128),
+    ("head_blockmax_i4", 64, 1031, 64, 100),
+    ("head_blockmax_i4", 257, 127, 80, 160),
+    ("head_blockmax_i4", 130, 1, 80, 97),
+    ("head_blockmax_i4", 64, 129, 96, 192),
+    ("head_blockmax_i4", 257, 1031, 96, 150),
+    ("head_blockmax_i4", 1, 1031, 1024, 2048),
+    ("head_blockmax_i4", 130, 127, 1024, 1500),
 ]
+
+
+def _invalidate_last_block(valid):
+    """Every other row of the last 128-row block invalid, from its second
+    row on."""
+    valid[(len(valid) - 1) // 128 * 128 + 1 :: 2] = False
+    return valid
 
 
 @pytest.mark.cuda
@@ -267,6 +288,7 @@ def test_kernel_matches_plain_on_card(cuda, kernel, b, r, width, f):
         head, scales, qhead, valid, codes = _int4_case(5, b, r, width, f)
     else:
         head, scales, qhead, valid, codes = _int8_case(5, b, r, width)
+    valid = _invalidate_last_block(valid)
     args = _t(head, scales, qhead, valid, device=cuda)
     before = thead.LAUNCHES[kernel]
     if kernel == "head_scores_i8":
@@ -285,6 +307,44 @@ def test_kernel_matches_plain_on_card(cuda, kernel, b, r, width, f):
         got.cpu().numpy(), want.cpu().numpy(),
         _bound(scales, qhead, codes), valid,
     )
+
+
+def test_check_aligned_refuses_misaligned_view():
+    """TMA takes 16-byte aligned bases: the int4 wrappers raise on a head
+    view that starts elsewhere, and do not copy it; a row-chunk view passes
+    (device-independent, so it runs here on CPU tensors)."""
+    head, scales, qhead, valid, _ = _int4_case(1, 4, 5, 16, 32)
+    head, scales, qhead, valid = _t(head, scales, qhead, valid)
+    thead._check_operands(head[1:], scales, qhead, valid[1:])
+    flat = torch.zeros(8 + head.numel(), dtype=torch.uint8)
+    shifted = flat[8:].view(head.shape)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        thead._check_operands(shifted, scales, qhead, valid)
+
+
+@pytest.mark.cuda
+def test_int8_library_refuses_int4(cuda):
+    """csrc/head.cu holds the int8 family only: its entry points return
+    cudaErrorInvalidValue (1) for int4 = 1 and launch nothing."""
+    from osr_tpu_torch.ops import _build
+
+    head, scales, qhead, valid, _ = _int4_case(1, 4, 64, 16, 32)
+    head, scales, qhead, valid = _t(head, scales, qhead, valid, device=cuda)
+    q = thead.scaled_query(qhead, scales, 32)
+    out = torch.zeros(4, 64, device=cuda)
+    bmax = torch.zeros(1, 4, device=cuda)
+    rows = torch.zeros(4, 1, 8, dtype=torch.int32, device=cuda)
+    lib = _build.library("head")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), head.data_ptr(), valid.data_ptr())
+    assert lib.osr_head_scores(
+        *ptrs, out.data_ptr(), bmax.data_ptr(), 4, 64, 16, 1, 1, stream
+    ) == 1
+    assert lib.osr_head_blocktopm(
+        *ptrs, out.data_ptr(), rows.data_ptr(), 4, 64, 16, 1, 8, stream
+    ) == 1
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out) == 0 and torch.count_nonzero(bmax) == 0
 
 
 @pytest.mark.cuda
