@@ -7,18 +7,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. build the hand-written kernels (osr_tpu_torch/csrc: head.cu,
    head_wgmma.cu, matmul.cu, quantize.cu) with nvcc, one process per
    source, all at once; print each kernel's registers and shared memory
-   (ptxas, plus the dynamic shared memory of the int4 kernels), failing if
-   ptxas serialized a wgmma pipeline; check that the SASS of both int4
-   kernels (K3, K4-i4) holds HGMMA and UTMALDG (wgmma and TMA loads);
+   (ptxas, plus the dynamic shared memory of head_wgmma.cu's kernels),
+   failing if ptxas serialized a wgmma pipeline; check that the SASS of
+   head_wgmma.cu's four kernels (K2, K4-i8, K3, K4-i4) holds HGMMA and
+   UTMALDG (wgmma and TMA loads);
 2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
    a ragged small shape and at the FiQA bench shape (the main path's own
-   inputs), with the tolerance of tests/test_torch_head.py, and K3 and
-   K4-i4 at the edges of the int4 kernel's TMA ring (packed widths 16 to
-   1,024, B and R off the 128 tiles, invalid rows in the last block); time
-   each
+   inputs), with the tolerance of tests/test_torch_head.py, and K2/K4-i8
+   and K3/K4-i4 at the edges of their TMA rings (int8 widths 16 to 2,048
+   bytes, int4 packed widths 16 to 1,024, B and R off the 128 tiles,
+   invalid rows in the last block); time each
    kernel, its plain version and a one-call PyTorch yardstick; hold K4
-   (the per-block top-m extraction, int8 and int4, m in 1, 4, 8) against
-   its plain twin at R=700, F=160, B=9: bit-equal on exact-sum inputs,
+   (the per-block top-m extraction, int8 and int4, m in 1, 4, 8, 16)
+   against its plain twin at R=700, F=160, B=9: bit-equal on exact-sum inputs,
    within the K1-K3 bound on random ones; hold K4 against the stable
    per-block top-8 of K2's (K3's) own scores at the path shapes, bit for
    bit; hold K5, K6, K7 (both roundings) and K8 against theirs at a
@@ -116,8 +117,9 @@ DENSE_KERNELS = {
 }
 KERNELS = {**HEAD_KERNELS, **TOPM_KERNELS, **DENSE_KERNELS}
 SOURCES = {
-    "head.cu": ("head_scores_i8", "head_blockmax_i8", "head_blocktopm_i8"),
-    "head_wgmma.cu": ("head_blockmax_i4", "head_blocktopm_i4"),
+    "head.cu": ("head_scores_i8",),
+    "head_wgmma.cu": ("head_blockmax_i8", "head_blocktopm_i8",
+                      "head_blockmax_i4", "head_blocktopm_i4"),
     "matmul.cu": ("int8_similarity", "int4_similarity"),
     "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
                     "dequantize_symmetric"),
@@ -126,11 +128,11 @@ SOURCE_OF = {k: f"osr_tpu_torch/csrc/{src}" for src, ks in SOURCES.items()
              for k in ks}
 # ptxas function-name fragments of the instantiations the paths launch.
 MANGLED = {
-    "head_scores_kernelILi0E": "head_scores_i8",
-    "head_scores_kernelILi1E": "head_blockmax_i8",
-    "head_scores_kernelILi2E": "head_blocktopm_i8",
-    "head_i4_kernelILi0E": "head_blockmax_i4",
-    "head_i4_kernelILi1E": "head_blocktopm_i4",
+    "head_scores_kernel": "head_scores_i8",
+    "head_wgmma_kernelILb1ELi0E": "head_blockmax_i8",
+    "head_wgmma_kernelILb1ELi1E": "head_blocktopm_i8",
+    "head_wgmma_kernelILb0ELi0E": "head_blockmax_i4",
+    "head_wgmma_kernelILb0ELi1E": "head_blocktopm_i4",
     "similarity_kernelILb0ELb1E": "int8_similarity",
     "similarity_kernelILb1ELb1E": "int4_similarity",
     "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
@@ -159,9 +161,9 @@ def card_line():
 def kernel_resources():
     """(registers per thread, shared memory bytes per block) of each kernel
     as ptxas reports them (``nvcc --resource-usage``, one process per
-    source, run at once), plus the dynamic shared memory the int4 kernels
-    request at launch; both set blocks per SM. Fails if ptxas serialized
-    a wgmma pipeline (its C7513/C7515 warnings)."""
+    source, run at once), plus the dynamic shared memory head_wgmma.cu's
+    kernels request at launch; both set blocks per SM. Fails if ptxas
+    serialized a wgmma pipeline (its C7513/C7515 warnings)."""
     from osr_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
@@ -195,16 +197,21 @@ def kernel_resources():
                 current = None
     if set(regs) != set(KERNELS):
         fail(f"ptxas reported registers for {sorted(regs)} only")
-    dynamic = _build.library("head_wgmma").osr_head_i4_smem_bytes()
+    lib = _build.library("head_wgmma")
     for name in SOURCES["head_wgmma.cu"]:
-        smem[name] += dynamic
+        smem[name] += lib.osr_head_wgmma_smem_bytes(name.endswith("i8"))
     return regs, smem
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "LDS", "PRMT", "LOP3", "HFMA2", "HADD2")
+
+
 def check_sass():
-    """The int4 kernels' SASS (cuobjdump, beside nvcc) must hold HGMMA
-    (wgmma) and UTMALDG (TMA tensor loads). Returns the counts of both in
-    each int4 kernel."""
+    """The SASS of head_wgmma.cu's kernels (cuobjdump, beside nvcc) must
+    hold HGMMA (wgmma) and UTMALDG (TMA tensor loads). Returns the static
+    count of each of SASS_OPS in each of them (the main loop's two stages
+    are unrolled; the shared loads and the decode's byte permutes, logic
+    ops and bf16 subtractions are the others)."""
     from pathlib import Path
 
     from osr_tpu_torch.ops import _build
@@ -224,10 +231,14 @@ def check_sass():
                 (n for m, n in MANGLED.items() if m in line), None
             )
             if current is not None:
-                counts[current] = {"HGMMA": 0, "UTMALDG": 0}
-        elif current is not None:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[current][op] += op in line
+                counts[current] = dict.fromkeys(SASS_OPS, 0)
+        elif current is not None and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in counts[current]:
+                counts[current][op] += 1
     for name in SOURCES["head_wgmma.cu"]:
         if not all(counts.get(name, {}).get(op) for op in ("HGMMA",
                                                              "UTMALDG")):
@@ -269,6 +280,19 @@ def kernel_call(name, head, scales, qhead, valid, plain=False):
         else H.masked_head_scores_blockmax
     )
     return fn(head, scales, qhead, valid)
+
+
+def tile_loads(head, b):
+    """GB that the TMA of a head_wgmma.cu kernel copies from L2 into
+    shared memory in one launch: per (128 x 128) block and stage, two
+    16 KB query tiles and the raw head tile (128 rows x 128 int8 bytes or
+    64 packed int4 bytes). Every block loads its queries' whole width
+    again; this, not the device-memory bytes, is the traffic that grows
+    with the tile count."""
+    r, hw = head.shape
+    row_bytes = 64 if head.dtype == torch.uint8 else 128
+    blocks = -(-b // 128) * -(-r // 128)
+    return blocks * -(-hw // row_bytes) * (2 * 16384 + 128 * row_bytes) / 1e9
 
 
 def score_bound(head, scales, qhead):
@@ -338,11 +362,15 @@ def kernel_numbers(name, head, scales, qhead, valid):
     if name != "head_scores_i8":
         nbytes += 4 * b * (-(-r // 128))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    loads = ""
+    if SOURCE_OF[name].endswith("head_wgmma.cu"):
+        gb = tile_loads(head, b)
+        loads = f" tile_loads_GB={gb:.3f} ({gb / ms:.3f} TB/s)"
     log(
         f"kernel {name}: B={b} R={r} F={width} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={max(t_ops, t_bytes):.4f} max_abs_err={err:.3e} "
-        f"TFLOP/s={flops / ms / 1e9:.1f}"
+        f"TFLOP/s={flops / ms / 1e9:.1f}{loads}"
     )
     return {
         "name": name,
@@ -387,15 +415,16 @@ def blocktopm_case(dtype, exact_sum, dev, b=9, r=700, f=160, seed=7,
     B off the 128-query tile, invalid rows. Exact-sum inputs (power-of-two
     column scales, integer query counts, codes from a few levels) make
     every dot exact in f32 whatever the summation order, and hold many
-    real ties. An int4 head has packed width fp (f / 2 by default; columns
-    f and up are zero)."""
+    real ties. An int8 head has width fp (f by default), an int4 head
+    packed width fp (f / 2 by default); columns f and up are zero."""
     rng = np.random.RandomState(seed)
     lo, hi = ((-2, 3) if exact_sum else (-127, 128)) if dtype == "int8" else (
         (0, 3) if exact_sum else (0, 16)
     )
     codes = rng.randint(lo, hi, (r, f))
     if dtype == "int8":
-        head = codes.astype(np.int8)
+        head = np.zeros((r, fp or f), np.int8)
+        head[:, :f] = codes
     else:  # block-packed: byte c holds columns c and fp + c
         fp = f // 2 if fp is None else fp
         full = np.zeros((r, 2 * fp), np.uint8)
@@ -511,11 +540,13 @@ def blocktopm_numbers(name, head, scales, qhead, valid, m=NARROW_M):
         + 2 * 4 * b * g * m
     )
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    gb = tile_loads(head, b)
     log(
         f"kernel {name}: B={b} R={r} F={width} m={m} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={max(t_ops, t_bytes):.4f} (bytes {t_bytes:.4f}) "
-        f"max_abs_err={err:.3e} TFLOP/s={flops / ms / 1e9:.1f}"
+        f"max_abs_err={err:.3e} TFLOP/s={flops / ms / 1e9:.1f} "
+        f"tile_loads_GB={gb:.3f} ({gb / ms:.3f} TB/s)"
     )
     return {
         "name": name,
@@ -532,41 +563,54 @@ def blocktopm_numbers(name, head, scales, qhead, valid, m=NARROW_M):
     }
 
 
-# The int4 kernel's TMA ring edges: (B, R, packed width, logical F).
-INT4_RING_CASES = (
-    (1, 1, 16, 32), (64, 127, 16, 20), (130, 129, 48, 96),
-    (257, 1031, 48, 77), (1, 129, 64, 128), (64, 1031, 64, 100),
-    (257, 127, 80, 160), (130, 1, 80, 97), (64, 129, 96, 192),
-    (257, 1031, 96, 150), (1, 1031, 1024, 2048), (130, 127, 1024, 1500),
-)
+# The TMA rings' edges: (B, R, head width in bytes, logical F). A stage
+# takes 128 int8 bytes, or 64 packed int4 bytes, of each head row.
+RING_CASES = {
+    "int8": (
+        (1, 1, 16, 16), (64, 127, 16, 10), (130, 129, 48, 48),
+        (257, 1031, 48, 37), (1, 129, 64, 64), (64, 1031, 112, 100),
+        (257, 127, 112, 112), (130, 1, 128, 128), (64, 129, 128, 97),
+        (257, 1031, 144, 144), (1, 1031, 2048, 2048),
+        (130, 127, 2048, 1500),
+    ),
+    "int4": (
+        (1, 1, 16, 32), (64, 127, 16, 20), (130, 129, 48, 96),
+        (257, 1031, 48, 77), (1, 129, 64, 128), (64, 1031, 64, 100),
+        (257, 127, 80, 160), (130, 1, 80, 97), (64, 129, 96, 192),
+        (257, 1031, 96, 150), (1, 1031, 1024, 2048),
+        (130, 127, 1024, 1500),
+    ),
+}
 
 
-def int4_ring_checks(dev):
-    """K3 and K4-i4 at the edges of the TMA ring (INT4_RING_CASES), every
-    other row of the last 128-row block invalid: K3 within the tolerance of
-    its plain version and K4-i4 (m=8) equal to the per-block top-8 of K3's
-    own scores on random inputs; K4-i4 bit-equal to its plain twin on
-    exact-sum ones."""
-    for b, r, fp, f in INT4_RING_CASES:
+def ring_checks(dtype, dev):
+    """K2/K4-i8 or K3/K4-i4 at the edges of the TMA ring (RING_CASES),
+    every other row of the last 128-row block invalid: K2/K3 within the
+    tolerance of its plain version and K4 (m=8) equal to the per-block
+    top-8 of K2's (K3's) own scores on random inputs; K4 bit-equal to its
+    plain twin on exact-sum ones."""
+    k, i = ("K2", "i8") if dtype == "int8" else ("K3", "i4")
+    for b, r, fp, f in RING_CASES[dtype]:
         cases = []
         for exact_sum in (False, True):
-            args = blocktopm_case("int4", exact_sum, dev, b=b, r=r, f=f,
+            args = blocktopm_case(dtype, exact_sum, dev, b=b, r=r, f=f,
                                   seed=r + fp, fp=fp)
             args[3][(r - 1) // 128 * 128 + 1 :: 2] = False
             cases.append(args)
-        err = check_kernel("head_blockmax_i4", *cases[0])
+        err = check_kernel(f"head_blockmax_{i}", *cases[0])
         blocktopm_is_topm_of_blockmax(*cases[0])
         check_blocktopm(*cases[1], NARROW_M, exact_sum=True)
-        log(f"int4 ring edge B={b} R={r} packed width {fp} F={f}: K3 "
-            f"max_abs_err={err:.3e}; K4-i4 equals K3's per-block top-"
+        log(f"{dtype} ring edge B={b} R={r} head width {fp} F={f}: {k} "
+            f"max_abs_err={err:.3e}; K4-{i} equals {k}'s per-block top-"
             f"{NARROW_M} and its exact-sum plain twin")
 
 
 def blocktopm_small_checks(dev):
     """K4 against its plain twin at R=700, F=160, B=9, int8 and int4, m in
-    1, 4, 8: bit-equal on exact sums, within the bound on random inputs."""
+    1, 4, 8, 16: bit-equal on exact sums, within the bound on random
+    inputs."""
     for dtype in ("int8", "int4"):
-        for m in (1, 4, NARROW_M):
+        for m in (1, 4, NARROW_M, 16):
             for exact_sum in (True, False):
                 err = check_blocktopm(
                     *blocktopm_case(dtype, exact_sum, dev), m, exact_sum
@@ -916,8 +960,10 @@ def million_path(dev):
         lambda: H.masked_head_scores_blockmax(head, scales, qhead, valid),
         reps=5,
     )
+    gb = tile_loads(head, qhead.shape[0])
     log(f"kernel head_blockmax_i8 at one 1M chunk (B={qhead.shape[0]}, "
-        f"R={head.shape[0]}): ms={k2_ms:.4f}")
+        f"R={head.shape[0]}): ms={k2_ms:.4f} tile_loads_GB={gb:.3f} "
+        f"({gb / k2_ms:.3f} TB/s)")
     torch.cuda.empty_cache()
     row = blocktopm_numbers("head_blocktopm_i8", head, scales, qhead, valid)
     row["launches"] = counts["x"]["head_blocktopm_i8"]
@@ -1367,13 +1413,15 @@ def main():
     regs, smem = kernel_resources()
     log(f"registers per thread (ptxas): {regs}")
     log(f"shared memory per block, bytes (ptxas static + dynamic): {smem}")
-    log(f"int4 kernels' SASS, HGMMA and UTMALDG counts: {check_sass()}")
+    log(f"head_wgmma.cu kernels' SASS, HGMMA and UTMALDG counts: "
+        f"{check_sass()}")
     log(f"host runtime: native={native.available()}")
 
     for name in HEAD_KERNELS:
         err = check_kernel(name, *small_case(name, dev))
         log(f"small ragged check {name}: max_abs_err={err:.3e}")
-    int4_ring_checks(dev)
+    for dtype in ("int8", "int4"):
+        ring_checks(dtype, dev)
     blocktopm_small_checks(dev)
     dense_small_checks(dev)
 

@@ -68,7 +68,13 @@ def tail_candidates_flat(
     if len(tail_ids) == 0:
         return _empty_candidates(batch_size)
 
-    if use_native and native.available():
+    # The native walker refuses 2^24 rows or more (its radix keys are 32
+    # bits); the NumPy body below keys on int64 and takes any row count.
+    if (
+        use_native
+        and num_rows < native.WALKER_MAX_ROWS
+        and native.available()
+    ):
         rows, cols, tail, qptr, total = native.tail_candidates_native(
             post_ptr, post_rows, post_weights,
             tail_ids, tail_counts, tail_ptr, num_rows,

@@ -54,24 +54,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "head":
         lib.osr_head_scores.restype = ci
-        lib.osr_head_scores.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
-        ]
-        lib.osr_head_blocktopm.restype = ci
-        lib.osr_head_blocktopm.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
-        ]
+        lib.osr_head_scores.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
     elif name == "head_wgmma":
-        lib.osr_head_i4_blockmax.restype = ci
-        lib.osr_head_i4_blockmax.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, vp,
-        ]
-        lib.osr_head_i4_blocktopm.restype = ci
-        lib.osr_head_i4_blocktopm.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
-        ]
-        lib.osr_head_i4_smem_bytes.restype = ci
-        lib.osr_head_i4_smem_bytes.argtypes = []
+        for dtype in ("i8", "i4"):
+            blockmax = getattr(lib, f"osr_head_{dtype}_blockmax")
+            blockmax.restype = ci
+            blockmax.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            blocktopm = getattr(lib, f"osr_head_{dtype}_blocktopm")
+            blocktopm.restype = ci
+            blocktopm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.osr_head_wgmma_smem_bytes.restype = ci
+        lib.osr_head_wgmma_smem_bytes.argtypes = [ci]
     elif name == "matmul":
         lib.osr_similarity.restype = ci
         lib.osr_similarity.argtypes = [

@@ -23,15 +23,15 @@ Wrappers, each with its plain version beside it:
   ``_make_blocktopm_kernel`` and ``_blocktopm_epilogue`` (via
   ``head_blocktopm_pallas`` and ``masked_head_blocktopm``).
 
-Two CUDA sources, split by the head's dtype. The int8 family (K1, K2,
-K4-i8) is one templated kernel with three epilogues over one bf16
-``mma.sync`` main loop (``csrc/head.cu``). The int4 family (K3, K4-i4) is
-one kernel with two epilogues over a Hopper main loop
-(``csrc/head_wgmma.cu``): a TMA ring of packed-head and query tiles, the
-nibbles decoded to bf16 in registers, and ``wgmma`` with the head as its
-register operand and f32 accumulators. Within a family the epilogues
-share the main loop, so K4's values are bit for bit the per-block top-m
-of K2's (K3's) scores. Bound on an H100 at the bench
+Two CUDA sources. K2, K3 and both K4s are one kernel template over a
+Hopper main loop (``csrc/head_wgmma.cu``), instantiated per head dtype
+with two epilogues: a TMA ring of head and query tiles, the codes decoded
+to bf16 in registers, and ``wgmma`` with the head as its register operand
+and f32 accumulators. Within a dtype the epilogues share the main loop, so
+K4's values are bit for bit the per-block top-m of K2's (K3's) scores. K1
+is a bf16 ``mma.sync`` kernel (``csrc/head.cu``). The int8 kernels of
+``head_wgmma.cu`` read the query columns in their fragments' order:
+:func:`i8_kernel_query` permutes them. Bound on an H100 at the bench
 shape (B=3,328, R=57,728, F=2,048): 7.87e11 FLOP over 989 TFLOP/s bf16 =
 0.7957 ms against 0.27 ms of bytes, so the tensor cores bound them; K4
 per 1M-corpus chunk (B=2,048, R=500,096): 4.24 ms against 0.46 ms of
@@ -47,6 +47,7 @@ launches (plain calls are not counted).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -55,8 +56,9 @@ from osr_tpu_torch.ops.topk import block_max, block_topm
 
 ROW_TILE = 128  # the kernels' head-row tile: one 128-row pruning block
 COL_ALIGN = 16  # the kernels' head-width alignment, in bytes
-PTR_ALIGN = 16  # TMA's base-pointer alignment (int4 kernels), in bytes
-BLOCKTOPM_MAX_M = 16  # K4's largest m (csrc/head.cu, head_wgmma.cu: kMaxM)
+PTR_ALIGN = 16  # TMA's (and K1's vector loads') head alignment, in bytes
+BLOCKTOPM_MAX_M = 16  # K4's largest m (csrc/head_wgmma.cu: kMaxM)
+I8_STAGE = 128  # int8 head columns per stage of csrc/head_wgmma.cu's ring
 
 LAUNCHES: Dict[str, int] = {
     "head_scores_i8": 0,  # K1
@@ -183,10 +185,10 @@ def _check_operands(head, head_scales, qhead, valid):
         )
     if not head.is_contiguous():
         raise ValueError("head must be contiguous")
-    # The int4 kernels load the head through TMA, which takes a 16-byte
-    # aligned base; a row-chunk view of a head whose width is a multiple of
-    # 16 is aligned. Raise rather than copy.
-    if head.dtype == torch.uint8 and head.data_ptr() % PTR_ALIGN:
+    # The kernels load the head through TMA (K2-K4) or 16-byte vector loads
+    # (K1), which take a 16-byte aligned base; a row-chunk view of a head
+    # whose width is a multiple of 16 is aligned. Raise rather than copy.
+    if head.data_ptr() % PTR_ALIGN:
         raise ValueError(
             f"head starts at an address that is not a multiple of "
             f"{PTR_ALIGN} bytes"
@@ -219,6 +221,39 @@ def _check_operands(head, head_scales, qhead, valid):
         raise ValueError("kernel dimensions must fit int32")
 
 
+def i8_stage_order() -> torch.Tensor:
+    """(128,) int64: the head column, within one stage of 128, that each
+    k position of the int8 kernels' wgmma steps multiplies.
+
+    In ``csrc/head_wgmma.cu`` lane t of a quad loads 16-byte chunks
+    2 t + G (G < 2) of its head rows; word j of such a chunk is k-step
+    4 G + j, and its byte i the k slot 2 t + (i & 1) + 8 (i >> 1), the
+    slots wgmma's A fragment gives the lane. So k position 16 kk + p holds
+    column 16 (2 t + G) + 4 j + i, with kk = 4 G + j, t = (p & 7) >> 1 and
+    i = (p & 1) + 2 (p >> 3)."""
+    k = torch.arange(I8_STAGE)
+    kk, p = k // 16, k % 16
+    t = (p & 7) >> 1
+    i = (p & 1) + 2 * (p >> 3)
+    return 16 * (2 * t + kk // 4) + 4 * (kk % 4) + i
+
+
+@functools.lru_cache(maxsize=None)
+def _i8_query_index(width: int, device: torch.device) -> torch.Tensor:
+    stages = torch.arange(0, width, I8_STAGE)[:, None]
+    return (stages + i8_stage_order()[None, :]).reshape(-1).to(device)
+
+
+def i8_kernel_query(q: torch.Tensor) -> torch.Tensor:
+    """The int8 kernels' query operand: ``q`` (B, W) bf16 zero-padded to
+    whole stages of 128 columns, each stage's columns in
+    :func:`i8_stage_order`. Only the order of the f32 sums changes."""
+    pad = (-q.shape[1]) % I8_STAGE
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+    return q.index_select(1, _i8_query_index(q.shape[1], q.device))
+
+
 def _launch(lib_name: str, entry: str, name: str, device, *args) -> None:
     """Call the C entry point ``entry`` of ``csrc/<lib_name>.cu`` with
     ``args`` and the current stream; raise on a CUDA error, count the
@@ -230,6 +265,13 @@ def _launch(lib_name: str, entry: str, name: str, device, *args) -> None:
     code = getattr(lib, entry)(*args, stream)
     _build.check(lib, code, name)
     LAUNCHES[name] += 1
+
+
+def _kernel_query(qhead, head_scales, head):
+    """``head_wgmma.cu``'s query operand for this head: the scaled bf16
+    query, in the int8 kernels' column order for an int8 head."""
+    q = scaled_query(qhead, head_scales, logical_width(head))
+    return q if head.dtype == torch.uint8 else i8_kernel_query(q)
 
 
 def masked_head_scores(
@@ -261,7 +303,7 @@ def masked_head_scores(
         _launch(
             "head", "osr_head_scores", "head_scores_i8", head.device,
             q.data_ptr(), head.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            None, q.shape[0], head.shape[0], head.shape[1], 0, 0,
+            q.shape[0], head.shape[0], head.shape[1],
         )
     return out
 
@@ -283,26 +325,19 @@ def masked_head_scores_blockmax(
     if head.device.type != "cuda":
         raise ValueError(f"no kernel for device {head.device}")
     _check_operands(head, head_scales, qhead, valid)
-    int4 = head.dtype == torch.uint8
+    dtype = "i4" if head.dtype == torch.uint8 else "i8"
     with torch.cuda.device(head.device):
-        q = scaled_query(qhead, head_scales, logical_width(head))
+        q = _kernel_query(qhead, head_scales, head)
         b, r = q.shape[0], head.shape[0]
         g = -(-r // ROW_TILE)
         out = torch.empty((b, r), dtype=torch.float32, device=head.device)
         bmax = torch.empty((g, b), dtype=torch.float32, device=head.device)
-        if int4:
-            _launch(
-                "head_wgmma", "osr_head_i4_blockmax", "head_blockmax_i4",
-                head.device, q.data_ptr(), head.data_ptr(),
-                valid.data_ptr(), out.data_ptr(), bmax.data_ptr(), b, r,
-                head.shape[1],
-            )
-        else:
-            _launch(
-                "head", "osr_head_scores", "head_blockmax_i8", head.device,
-                q.data_ptr(), head.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), bmax.data_ptr(), b, r, head.shape[1], 0, 1,
-            )
+        _launch(
+            "head_wgmma", f"osr_head_{dtype}_blockmax",
+            f"head_blockmax_{dtype}", head.device, q.data_ptr(),
+            head.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            bmax.data_ptr(), b, r, head.shape[1],
+        )
     return out, bmax.T
 
 
@@ -331,24 +366,17 @@ def masked_head_blocktopm(
             f"the block top-m kernel takes m <= {BLOCKTOPM_MAX_M}, got {m}"
         )
     _check_operands(head, head_scales, qhead, valid)
-    int4 = head.dtype == torch.uint8
-    name = "head_blocktopm_i4" if int4 else "head_blocktopm_i8"
+    dtype = "i4" if head.dtype == torch.uint8 else "i8"
     with torch.cuda.device(head.device):
-        q = scaled_query(qhead, head_scales, logical_width(head))
+        q = _kernel_query(qhead, head_scales, head)
         b, r = q.shape[0], head.shape[0]
         g = -(-r // ROW_TILE)
         vals = torch.empty((b, g, m), dtype=torch.float32, device=head.device)
         rows = torch.empty((b, g, m), dtype=torch.int32, device=head.device)
-        if int4:
-            _launch(
-                "head_wgmma", "osr_head_i4_blocktopm", name, head.device,
-                q.data_ptr(), head.data_ptr(), valid.data_ptr(),
-                vals.data_ptr(), rows.data_ptr(), b, r, head.shape[1], m,
-            )
-        else:
-            _launch(
-                "head", "osr_head_blocktopm", name, head.device,
-                q.data_ptr(), head.data_ptr(), valid.data_ptr(),
-                vals.data_ptr(), rows.data_ptr(), b, r, head.shape[1], 0, m,
-            )
+        _launch(
+            "head_wgmma", f"osr_head_{dtype}_blocktopm",
+            f"head_blocktopm_{dtype}", head.device, q.data_ptr(),
+            head.data_ptr(), valid.data_ptr(), vals.data_ptr(),
+            rows.data_ptr(), b, r, head.shape[1], m,
+        )
     return vals, rows

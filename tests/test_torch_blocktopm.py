@@ -1,5 +1,5 @@
 """K4, the per-block top-m extraction (osr_tpu_torch/ops/head.py:
-masked_head_blocktopm, csrc/head.cu), and the extraction step
+masked_head_blocktopm, csrc/head_wgmma.cu), and the extraction step
 (ops/bm25.py:fused_search_extract), against osr_tpu's Pallas kernel in
 interpret mode and its fused_search_extract, as
 tests/test_pallas_kernels.py runs them on the CPU.
@@ -48,8 +48,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dtype, seed, b, r, f, exact_sum, fp=128):
-    """(head, scales, qhead, valid, codes (R, f) float64). int4 heads are
+def _case(dtype, seed, b, r, f, exact_sum, fp=None):
+    """(head, scales, qhead, valid, codes (R, f) float64). int8 heads have
+    width fp (f by default; columns f and up are zero). int4 heads are
     block-packed with packed width fp (f <= 2 fp), 128 by default as the
     Pallas int4 kernel needs. Exact-sum cases draw codes from a few
     levels, so many dots tie."""
@@ -59,9 +60,10 @@ def _case(dtype, seed, b, r, f, exact_sum, fp=128):
             rng.randint(-2, 3, (r, f)) if exact_sum
             else rng.randint(-127, 128, (r, f))
         ).astype(np.int8)
-        head = codes
-        fp = f
+        head = np.zeros((r, fp or f), np.int8)
+        head[:, :f] = codes
     else:
+        fp = fp or 128
         full = (
             rng.randint(0, 3, (r, 2 * fp)) if exact_sum
             else rng.randint(0, 16, (r, 2 * fp))
@@ -276,15 +278,30 @@ def test_fused_search_extract_refuses_unknown_backend():
 # ----------------------------------------------------------------------
 
 CARD_CASES = [
-    # (dtype, B, R, F, m, exact_sum, int4 packed width)
+    # (dtype, B, R, F, m, exact_sum, head width: int8 bytes, int4 packed)
     ("int8", 9, 700, 160, 1, True, None),
     ("int8", 9, 700, 160, 4, True, None),
     ("int8", 9, 700, 160, 8, True, None),
+    ("int8", 9, 700, 160, 16, True, None),
     ("int4", 9, 700, 160, 1, True, 128),
     ("int4", 9, 700, 160, 4, True, 128),
     ("int4", 9, 700, 160, 16, True, 128),
     ("int8", 257, 1031, 160, 8, False, None),
     ("int4", 257, 1031, 160, 8, False, 128),
+    # The int8 kernel's TMA ring takes 128 head bytes a stage: widths
+    # below, at and off a stage, B and R off the 128 tiles.
+    ("int8", 1, 1, 16, 1, True, 16),
+    ("int8", 64, 127, 10, 8, True, 16),
+    ("int8", 130, 129, 48, 4, True, 48),
+    ("int8", 257, 1031, 37, 8, False, 48),
+    ("int8", 1, 129, 64, 16, True, 64),
+    ("int8", 64, 1031, 100, 8, True, 112),
+    ("int8", 257, 127, 112, 8, True, 112),
+    ("int8", 130, 1, 128, 1, False, 128),
+    ("int8", 64, 129, 97, 8, True, 128),
+    ("int8", 257, 1031, 144, 16, False, 144),
+    ("int8", 1, 1031, 2048, 8, True, 2048),
+    ("int8", 130, 127, 1500, 8, False, 2048),
     # The int4 kernel's TMA ring takes 64 packed bytes a stage: packed
     # widths below, at and off a stage, B and R off the 128 tiles.
     ("int4", 1, 1, 32, 1, True, 16),
@@ -341,6 +358,12 @@ def test_blocktopm_kernel_matches_plain_on_card(cuda, dtype, b, r, f, m,
     "dtype,b,r,f,fp",
     [
         ("int8", 300, 4000, 160, None),
+        ("int8", 1, 1, 10, 16),
+        ("int8", 130, 129, 48, 48),
+        ("int8", 257, 1031, 64, 64),
+        ("int8", 64, 127, 100, 112),
+        ("int8", 257, 1031, 144, 144),
+        ("int8", 130, 4000, 2048, 2048),
         ("int4", 300, 4000, 160, 128),
         ("int4", 1, 1, 20, 16),
         ("int4", 130, 129, 96, 48),

@@ -50,13 +50,17 @@ def _bf16(x):
     ).float().numpy()
 
 
-def _int8_case(seed, b, r, f):
+def _int8_case(seed, b, r, f, width=None):
+    """int8 head of ``width`` columns (f by default); columns f and up are
+    zero, as the engine pads the head at upload."""
     rng = np.random.RandomState(seed)
-    head = rng.randint(-127, 128, (r, f)).astype(np.int8)
+    codes = rng.randint(-127, 128, (r, f)).astype(np.int8)
     scales = ((rng.rand(f) + 0.1) / 127.0).astype(np.float32)
     qhead = rng.randint(0, 4, (b, f)).astype(np.float32)
     valid = rng.rand(r) > 0.1
-    return head, scales, qhead, valid, head.astype(np.float64)
+    head = np.zeros((r, width or f), np.int8)
+    head[:, :f] = codes
+    return head, scales, qhead, valid, codes.astype(np.float64)
 
 
 def _int4_case(seed, b, r, f_packed, f):
@@ -257,6 +261,20 @@ KERNEL_CASES = [
     ("head_scores_i8", 257, 1031, 2048, 2048),
     ("head_blockmax_i8", 257, 1031, 2048, 2048),
     ("head_blockmax_i4", 257, 1031, 1024, 2048),
+    # The int8 kernel's TMA ring takes 128 head bytes a stage: widths
+    # below, at and off a stage, B and R off the 128 tiles.
+    ("head_blockmax_i8", 1, 1, 16, 16),
+    ("head_blockmax_i8", 64, 127, 16, 10),
+    ("head_blockmax_i8", 130, 129, 48, 48),
+    ("head_blockmax_i8", 257, 1031, 48, 37),
+    ("head_blockmax_i8", 1, 129, 64, 64),
+    ("head_blockmax_i8", 64, 1031, 112, 100),
+    ("head_blockmax_i8", 257, 127, 112, 112),
+    ("head_blockmax_i8", 130, 1, 128, 128),
+    ("head_blockmax_i8", 64, 129, 128, 97),
+    ("head_blockmax_i8", 257, 1031, 144, 144),
+    ("head_blockmax_i8", 1, 1031, 2048, 2048),
+    ("head_blockmax_i8", 130, 127, 2048, 1500),
     # The int4 kernel's TMA ring takes 64 packed bytes a stage: packed
     # widths below, at and off a stage, B and R off the 128 tiles.
     ("head_blockmax_i4", 1, 1, 16, 32),
@@ -287,7 +305,7 @@ def test_kernel_matches_plain_on_card(cuda, kernel, b, r, width, f):
     if kernel.endswith("i4"):
         head, scales, qhead, valid, codes = _int4_case(5, b, r, width, f)
     else:
-        head, scales, qhead, valid, codes = _int8_case(5, b, r, width)
+        head, scales, qhead, valid, codes = _int8_case(5, b, r, f, width)
     valid = _invalidate_last_block(valid)
     args = _t(head, scales, qhead, valid, device=cuda)
     before = thead.LAUNCHES[kernel]
@@ -309,42 +327,50 @@ def test_kernel_matches_plain_on_card(cuda, kernel, b, r, width, f):
     )
 
 
-def test_check_aligned_refuses_misaligned_view():
-    """TMA takes 16-byte aligned bases: the int4 wrappers raise on a head
-    view that starts elsewhere, and do not copy it; a row-chunk view passes
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_check_aligned_refuses_misaligned_view(dtype):
+    """TMA takes 16-byte aligned bases: the wrappers raise on a head view
+    that starts elsewhere, and do not copy it; a row-chunk view passes
     (device-independent, so it runs here on CPU tensors)."""
-    head, scales, qhead, valid, _ = _int4_case(1, 4, 5, 16, 32)
+    if dtype == "int8":
+        head, scales, qhead, valid, _ = _int8_case(1, 4, 5, 32)
+    else:
+        head, scales, qhead, valid, _ = _int4_case(1, 4, 5, 16, 32)
     head, scales, qhead, valid = _t(head, scales, qhead, valid)
     thead._check_operands(head[1:], scales, qhead, valid[1:])
-    flat = torch.zeros(8 + head.numel(), dtype=torch.uint8)
+    flat = torch.zeros(8 + head.numel(), dtype=head.dtype)
     shifted = flat[8:].view(head.shape)
     with pytest.raises(ValueError, match="multiple of 16"):
         thead._check_operands(shifted, scales, qhead, valid)
 
 
 @pytest.mark.cuda
-def test_int8_library_refuses_int4(cuda):
-    """csrc/head.cu holds the int8 family only: its entry points return
-    cudaErrorInvalidValue (1) for int4 = 1 and launch nothing."""
+def test_head_libraries_refuse_bad_shapes(cuda):
+    """The C entry points return cudaErrorInvalidValue (1) and launch
+    nothing for a width off 16 bytes (K1, K2, K4-i8) or an m over
+    kMaxM (K4-i8)."""
     from osr_tpu_torch.ops import _build
 
-    head, scales, qhead, valid, _ = _int4_case(1, 4, 64, 16, 32)
+    head, scales, qhead, valid, _ = _int8_case(1, 4, 64, 32)
     head, scales, qhead, valid = _t(head, scales, qhead, valid, device=cuda)
-    q = thead.scaled_query(qhead, scales, 32)
+    q = thead.i8_kernel_query(thead.scaled_query(qhead, scales, 32))
     out = torch.zeros(4, 64, device=cuda)
     bmax = torch.zeros(1, 4, device=cuda)
-    rows = torch.zeros(4, 1, 8, dtype=torch.int32, device=cuda)
-    lib = _build.library("head")
+    rows = torch.zeros(4, 1, 17, dtype=torch.int32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (q.data_ptr(), head.data_ptr(), valid.data_ptr())
-    assert lib.osr_head_scores(
-        *ptrs, out.data_ptr(), bmax.data_ptr(), 4, 64, 16, 1, 1, stream
+    k1 = _build.library("head")
+    wg = _build.library("head_wgmma")
+    assert k1.osr_head_scores(*ptrs, out.data_ptr(), 4, 64, 24, stream) == 1
+    assert wg.osr_head_i8_blockmax(
+        *ptrs, out.data_ptr(), bmax.data_ptr(), 4, 64, 24, stream
     ) == 1
-    assert lib.osr_head_blocktopm(
-        *ptrs, out.data_ptr(), rows.data_ptr(), 4, 64, 16, 1, 8, stream
+    assert wg.osr_head_i8_blocktopm(
+        *ptrs, out.data_ptr(), rows.data_ptr(), 4, 64, 32, 17, stream
     ) == 1
     torch.cuda.synchronize()
     assert torch.count_nonzero(out) == 0 and torch.count_nonzero(bmax) == 0
+    assert torch.count_nonzero(rows) == 0
 
 
 @pytest.mark.cuda
@@ -352,3 +378,63 @@ def test_kernel_wrapper_refuses_unaligned_width(cuda):
     head, scales, qhead, valid, _ = _int8_case(6, 4, 64, 40)
     with pytest.raises(ValueError, match="multiple of 16"):
         thead.masked_head_scores(*_t(head, scales, qhead, valid, device=cuda))
+
+
+# ----------------------------------------------------------------------
+# The int8 kernels' operand layout (csrc/head_wgmma.cu), emulated here
+# ----------------------------------------------------------------------
+
+
+def test_i8_stage_order_is_a_permutation():
+    order = thead.i8_stage_order().numpy()
+    np.testing.assert_array_equal(np.sort(order), np.arange(thead.I8_STAGE))
+    # Lane t of a quad reads chunks 2 t and 2 t + 1 of a row: the k slots
+    # that wgmma's A fragment gives it (2 t, 2 t + 1, 2 t + 8, 2 t + 9 of
+    # each k-step) hold exactly those 32 columns.
+    for t in range(4):
+        slots = [16 * kk + s for kk in range(8)
+                 for s in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
+        assert sorted(order[slots]) == list(range(32 * t, 32 * t + 32))
+
+
+@pytest.mark.parametrize("width", [16, 48, 128, 144, 2048])
+def test_i8_kernel_query_matches_fragment_reads(width):
+    """Emulates the int8 kernel's register decode: lane t loads 16-byte
+    chunks 2 t + G of each head row in a stage of 128 bytes, word j of a
+    chunk is k-step 4 G + j and byte i the A slot 2 t + (i & 1) + 8 (i >>
+    1). Dotting those operands with i8_kernel_query's columns gives the
+    plain dots exactly (integer inputs: every sum is exact)."""
+    rng = np.random.RandomState(width)
+    b, r = 5, 7
+    head = rng.randint(-128, 128, (r, width)).astype(np.int8)
+    q = rng.randint(-8, 9, (b, width)).astype(np.float32)
+    qk = thead.i8_kernel_query(torch.from_numpy(q).to(torch.bfloat16))
+    stages = -(-width // thead.I8_STAGE)
+    assert qk.shape == (b, stages * thead.I8_STAGE)
+    padded = np.zeros((r, stages * 128), np.int8)
+    padded[:, :width] = head  # TMA's zero fill past the head's width
+    a = np.zeros((r, stages * 128), np.float64)
+    for s in range(stages):
+        for t in range(4):
+            for g in range(2):
+                chunk = padded[:, 128 * s + 16 * (2 * t + g) :][:, :16]
+                for j in range(4):
+                    for i in range(4):
+                        slot = 2 * t + (i & 1) + 8 * (i >> 1)
+                        k = 128 * s + 16 * (4 * g + j) + slot
+                        a[:, k] = chunk[:, 4 * j + i]
+    got = qk.double().numpy() @ a.T
+    want = q.astype(np.float64) @ head.astype(np.float64).T
+    np.testing.assert_array_equal(got, want)
+
+
+def test_i8_decode_is_exact_for_every_byte():
+    """The int8 kernel's decode: bf16 (0x4300 | (b & 0x7f)) minus bf16
+    (0x4300 | (b & 0x80)) is the signed code of byte b, for all 256."""
+    b = np.arange(256, dtype=np.int32)
+    bits = lambda x: torch.from_numpy(x.astype(np.int16)).view(torch.bfloat16)
+    got = bits(0x4300 | (b & 0x7F)) - bits(0x4300 | (b & 0x80))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        got.float().numpy(), b.astype(np.uint8).view(np.int8)
+    )

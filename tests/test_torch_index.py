@@ -200,6 +200,44 @@ def test_walker_guard_refuses_2_pow_24_rows():
         )
 
 
+def test_tail_walk_at_2_pow_24_rows_takes_numpy_body():
+    """An index of 2^24 rows or more (row chunks lift osr_tpu's cap): the
+    tail walk takes the NumPy body instead of the walker's refusal, and
+    sums duplicate (query, row) contributions as a plain dict does."""
+    top = 1 << 24
+    post_ptr = np.array([0, 3, 5, 8], np.int64)
+    post_rows = np.array(
+        [7, top - 2, top - 1, 0, top - 2, 3, top - 1, top - 3], np.int32
+    )
+    post_weights = np.arange(1, 9, dtype=np.float32) / 4
+    tail_ids = np.array([0, 1, 2, 1], np.int32)
+    tail_counts = np.array([1.0, 2.0, 1.0, 3.0], np.float32)
+    tail_ptr = np.array([0, 2, 2, 4], np.int64)
+    args = (post_ptr, post_rows, post_weights, tail_ids, tail_counts,
+            tail_ptr, 4)
+    got = tpost.tail_candidates_flat(*args, num_rows=top, use_native=True)
+    want = tpost.tail_candidates_flat(*args, num_rows=top, use_native=False)
+    for name in ("rows", "cols", "tail", "ptr"):
+        assert getattr(got, name).tobytes() == getattr(want, name).tobytes()
+    assert got.total == want.total
+
+    sums = {}
+    for q in range(3):
+        for i in range(tail_ptr[q], tail_ptr[q + 1]):
+            t = tail_ids[i]
+            for p in range(post_ptr[t], post_ptr[t + 1]):
+                key = (q, int(post_rows[p]))
+                sums[key] = sums.get(key, 0.0) + float(
+                    post_weights[p] * tail_counts[i]
+                )
+    keys = sorted(sums)
+    assert got.total == len(keys)
+    assert got.cols.tolist() == [q for q, _ in keys]
+    assert got.rows.tolist() == [r for _, r in keys]
+    np.testing.assert_allclose(got.tail, [sums[k] for k in keys], rtol=1e-6)
+    assert got.ptr.tolist() == [0, 4, 4, 9, 9]
+
+
 @pytest.mark.parametrize("dtype", ["int8", "int4", "bf16"])
 def test_index_from_arrays_round_trips(corpus, dtype):
     want = JaxBuilder(head_dtype=dtype).build(corpus)
