@@ -4,26 +4,30 @@ recorded in PERF.md).
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. build the hand-written kernels (osr_tpu_torch/csrc: head.cu,
-   head_wgmma.cu, matmul.cu, quantize.cu) with nvcc, one process per
-   source, all at once; print each kernel's registers and shared memory
-   (ptxas, plus the dynamic shared memory of head_wgmma.cu's kernels),
+1. build the hand-written kernels (osr_tpu_torch/csrc: head_wgmma.cu,
+   similarity_wgmma.cu, matmul.cu, quantize.cu) with nvcc, one process
+   per source, all at once; print each kernel's registers and shared
+   memory (ptxas, plus the dynamic shared memory of the TMA kernels),
    failing if ptxas serialized a wgmma pipeline; check that the SASS of
-   head_wgmma.cu's four kernels (K2, K4-i8, K3, K4-i4) holds HGMMA and
-   UTMALDG (wgmma and TMA loads);
+   head_wgmma.cu's five kernels (K1, K2, K4-i8, K3, K4-i4) holds HGMMA and
+   UTMALDG (wgmma and TMA loads) and that of similarity_wgmma.cu's K6
+   IGMMA (integer wgmma), UTMALDG and UTMASTG (TMA stores);
 2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
    a ragged small shape and at the FiQA bench shape (the main path's own
-   inputs), with the tolerance of tests/test_torch_head.py, and K2/K4-i8
-   and K3/K4-i4 at the edges of their TMA rings (int8 widths 16 to 2,048
-   bytes, int4 packed widths 16 to 1,024, B and R off the 128 tiles,
-   invalid rows in the last block); time each
+   inputs), with the tolerance of tests/test_torch_head.py, K1's scores
+   equal to K2's bit for bit there, and K1, K2/K4-i8 and K3/K4-i4 at the
+   edges of their TMA rings (int8 widths 16 to 2,048 bytes, int4 packed
+   widths 16 to 1,024, B and R off the 128 tiles, invalid rows in the last
+   block); time each
    kernel, its plain version and a one-call PyTorch yardstick; hold K4
    (the per-block top-m extraction, int8 and int4, m in 1, 4, 8, 16)
    against its plain twin at R=700, F=160, B=9: bit-equal on exact-sum inputs,
    within the K1-K3 bound on random ones; hold K4 against the stable
    per-block top-8 of K2's (K3's) own scores at the path shapes, bit for
    bit; hold K5, K6, K7 (both roundings) and K8 against theirs at a
-   ragged shape (B=37, N=1,000, D=776), where the error must be 0;
+   ragged shape (B=37, N=1,000, D=776), where the error must be 0, and K6
+   at the edges of its stages and tiles (packed widths off 16 bytes, which
+   its wrapper pads, N off 4, several tiles per persistent block);
 3. drive the sparse main path: the bench.py FiQA-scale corpus (57,638
    docs, 100k-term vocabulary) and its 6,648 queries through
    SparseSearchEngine(device="cuda", batch_sizes=(3328,)) at top_k=50 (K2),
@@ -52,9 +56,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
    1,024 at top_k=50, launches counted; the corpus codes equal the plain
-   quantizer's; 256 queries give the backend='torch' engine's ids and
-   bit-equal scores; the self-hit rate; each kernel against its plain
-   version at the path's shapes (error 0) with its times; the dense device
+   quantizer's; K6's wrapper made no operand copy; 256 queries give the
+   backend='torch' engine's ids and bit-equal scores; the self-hit rate;
+   each kernel against its plain version at the path's shapes (error 0)
+   with its times; the dense device
    step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
 8. drive the quantization round trip (quantize, dequantize; deterministic
    and stochastic, as benchmarks/suites.py's quantization suite does) on
@@ -117,10 +122,11 @@ DENSE_KERNELS = {
 }
 KERNELS = {**HEAD_KERNELS, **TOPM_KERNELS, **DENSE_KERNELS}
 SOURCES = {
-    "head.cu": ("head_scores_i8",),
-    "head_wgmma.cu": ("head_blockmax_i8", "head_blocktopm_i8",
-                      "head_blockmax_i4", "head_blocktopm_i4"),
-    "matmul.cu": ("int8_similarity", "int4_similarity"),
+    "head_wgmma.cu": ("head_scores_i8", "head_blockmax_i8",
+                      "head_blocktopm_i8", "head_blockmax_i4",
+                      "head_blocktopm_i4"),
+    "similarity_wgmma.cu": ("int4_similarity",),
+    "matmul.cu": ("int8_similarity",),
     "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
                     "dequantize_symmetric"),
 }
@@ -128,13 +134,13 @@ SOURCE_OF = {k: f"osr_tpu_torch/csrc/{src}" for src, ks in SOURCES.items()
              for k in ks}
 # ptxas function-name fragments of the instantiations the paths launch.
 MANGLED = {
-    "head_scores_kernel": "head_scores_i8",
+    "head_wgmma_kernelILb1ELi2E": "head_scores_i8",
     "head_wgmma_kernelILb1ELi0E": "head_blockmax_i8",
     "head_wgmma_kernelILb1ELi1E": "head_blocktopm_i8",
     "head_wgmma_kernelILb0ELi0E": "head_blockmax_i4",
     "head_wgmma_kernelILb0ELi1E": "head_blocktopm_i4",
-    "similarity_kernelILb0ELb1E": "int8_similarity",
-    "similarity_kernelILb1ELb1E": "int4_similarity",
+    "similarity_kernelILb1E": "int8_similarity",
+    "similarity_wgmma_kernelILb1E": "int4_similarity",
     "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
     "quantize_rows_kernelILb1ELb1E": "quantize_symmetric_stochastic",
     "dequantize_rows_kernelILb1E": "dequantize_symmetric",
@@ -161,9 +167,9 @@ def card_line():
 def kernel_resources():
     """(registers per thread, shared memory bytes per block) of each kernel
     as ptxas reports them (``nvcc --resource-usage``, one process per
-    source, run at once), plus the dynamic shared memory head_wgmma.cu's
-    kernels request at launch; both set blocks per SM. Fails if ptxas
-    serialized a wgmma pipeline (its C7513/C7515 warnings)."""
+    source, run at once), plus the dynamic shared memory the TMA kernels
+    request at launch; both set blocks per SM. Fails if ptxas serialized a
+    wgmma pipeline (its C7513/C7515 warnings)."""
     from osr_tpu_torch.ops import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
@@ -200,49 +206,60 @@ def kernel_resources():
     lib = _build.library("head_wgmma")
     for name in SOURCES["head_wgmma.cu"]:
         smem[name] += lib.osr_head_wgmma_smem_bytes(name.endswith("i8"))
+    smem["int4_similarity"] += _build.library(
+        "similarity_wgmma"
+    ).osr_similarity_wgmma_smem_bytes()
     return regs, smem
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "LDS", "PRMT", "LOP3", "HFMA2", "HADD2")
+# The SASS each TMA + wgmma source's kernels must hold: HGMMA (bf16 wgmma)
+# or IGMMA (integer wgmma), UTMALDG (TMA tensor loads), UTMASTG (TMA
+# tensor stores).
+SASS_REQUIRED = {
+    "head_wgmma.cu": ("HGMMA", "UTMALDG"),
+    "similarity_wgmma.cu": ("IGMMA", "UTMALDG", "UTMASTG"),
+}
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "LDS", "STS", "PRMT",
+            "LOP3", "IMAD", "HFMA2", "HADD2")
 
 
 def check_sass():
-    """The SASS of head_wgmma.cu's kernels (cuobjdump, beside nvcc) must
-    hold HGMMA (wgmma) and UTMALDG (TMA tensor loads). Returns the static
-    count of each of SASS_OPS in each of them (the main loop's two stages
-    are unrolled; the shared loads and the decode's byte permutes, logic
-    ops and bf16 subtractions are the others)."""
+    """The SASS (cuobjdump, beside nvcc) of each kernel of SASS_REQUIRED's
+    sources must hold that source's instructions. Returns the static count
+    of each of SASS_OPS in each kernel (the main loop's two stages are
+    unrolled; the shared loads and stores and the decode's byte permutes,
+    logic ops, integer multiplies and bf16 subtractions are the others)."""
     from pathlib import Path
 
     from osr_tpu_torch.ops import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    lib = _build._target(_build.CSRC / "head_wgmma.cu")
-    out = subprocess.run(
-        [str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-        timeout=300,
-    )
-    if out.returncode != 0:
-        fail(f"cuobjdump -sass failed:\n{out.stderr}")
-    counts, current = {}, None
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            current = next(
-                (n for m, n in MANGLED.items() if m in line), None
-            )
-            if current is not None:
-                counts[current] = dict.fromkeys(SASS_OPS, 0)
-        elif current is not None and "*/" in line:
-            words = line.split("*/", 1)[1].split()
-            if words and words[0].startswith("@"):
-                words = words[1:]
-            op = words[0].split(".")[0] if words else ""
-            if op in counts[current]:
-                counts[current][op] += 1
-    for name in SOURCES["head_wgmma.cu"]:
-        if not all(counts.get(name, {}).get(op) for op in ("HGMMA",
-                                                             "UTMALDG")):
-            fail(f"{name}: no HGMMA or no UTMALDG in its SASS ({counts})")
+    counts = {}
+    for src, required in SASS_REQUIRED.items():
+        out = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build._target(_build.CSRC / src))],
+            capture_output=True, text=True, timeout=300,
+        )
+        if out.returncode != 0:
+            fail(f"cuobjdump -sass failed:\n{out.stderr}")
+        current = None
+        for line in out.stdout.splitlines():
+            if "Function :" in line:
+                current = next(
+                    (n for m, n in MANGLED.items() if m in line), None
+                )
+                if current is not None:
+                    counts[current] = dict.fromkeys(SASS_OPS, 0)
+            elif current is not None and "*/" in line:
+                words = line.split("*/", 1)[1].split()
+                if words and words[0].startswith("@"):
+                    words = words[1:]
+                op = words[0].split(".")[0] if words else ""
+                if op in counts[current]:
+                    counts[current][op] += 1
+        for name in SOURCES[src]:
+            if not all(counts.get(name, {}).get(op) for op in required):
+                fail(f"{name}: its SASS lacks one of {required} ({counts})")
     return counts
 
 
@@ -501,6 +518,19 @@ def blocktopm_is_topm_of_blockmax(head, scales, qhead, valid, m=NARROW_M):
              f"{qhead.shape[0]}, R={head.shape[0]}")
 
 
+def k1_is_k2_scores(head, scales, qhead, valid):
+    """K1 is the scores-only epilogue of K2's kernel: on the same inputs
+    its (B, R) scores equal K2's bit for bit."""
+    from osr_tpu_torch.ops import head as H
+
+    got = H.masked_head_scores(head, scales, qhead, valid)
+    want, _ = H.masked_head_scores_blockmax(head, scales, qhead, valid)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"K1's scores differ from K2's at B={qhead.shape[0]}, "
+             f"R={head.shape[0]}")
+
+
 def blocktopm_numbers(name, head, scales, qhead, valid, m=NARROW_M):
     """K4's error, times and bound at a path shape. The yardstick (never
     called by the port): one cuBLAS bf16 product of the upcast head, the
@@ -584,11 +614,11 @@ RING_CASES = {
 
 
 def ring_checks(dtype, dev):
-    """K2/K4-i8 or K3/K4-i4 at the edges of the TMA ring (RING_CASES),
-    every other row of the last 128-row block invalid: K2/K3 within the
-    tolerance of its plain version and K4 (m=8) equal to the per-block
-    top-8 of K2's (K3's) own scores on random inputs; K4 bit-equal to its
-    plain twin on exact-sum ones."""
+    """K1/K2/K4-i8 or K3/K4-i4 at the edges of the TMA ring (RING_CASES),
+    every other row of the last 128-row block invalid: K1/K2/K3 within the
+    tolerance of their plain versions, K1's scores equal to K2's, and K4
+    (m=8) equal to the per-block top-8 of K2's (K3's) own scores on random
+    inputs; K4 bit-equal to its plain twin on exact-sum ones."""
     k, i = ("K2", "i8") if dtype == "int8" else ("K3", "i4")
     for b, r, fp, f in RING_CASES[dtype]:
         cases = []
@@ -600,9 +630,14 @@ def ring_checks(dtype, dev):
         err = check_kernel(f"head_blockmax_{i}", *cases[0])
         blocktopm_is_topm_of_blockmax(*cases[0])
         check_blocktopm(*cases[1], NARROW_M, exact_sum=True)
+        k1 = ""
+        if dtype == "int8":
+            k1_err = check_kernel("head_scores_i8", *cases[0])
+            k1_is_k2_scores(*cases[0])
+            k1 = f"; K1 max_abs_err={k1_err:.3e}, equal to K2's scores"
         log(f"{dtype} ring edge B={b} R={r} head width {fp} F={f}: {k} "
             f"max_abs_err={err:.3e}; K4-{i} equals {k}'s per-block top-"
-            f"{NARROW_M} and its exact-sum plain twin")
+            f"{NARROW_M} and its exact-sum plain twin{k1}")
 
 
 def blocktopm_small_checks(dev):
@@ -1157,6 +1192,45 @@ def dense_small_checks(dev):
         err = exact(name, kernel(), plain())
         log(f"small ragged check {name}: B/N={b}/{n} D={d} "
             f"max_abs_err={err:.3e}")
+    k6_edge_checks(dev)
+
+
+# K6's edges (B, N, D), as tests/test_torch_quantize.py:K6_EDGES: packed
+# widths D/2 below, at and off a 64-byte stage and off 16 bytes (padded by
+# the wrapper), B and N off the 128 tiles, N off 4 (plain stores), N and B
+# large enough that each persistent block walks several tiles, and widths
+# of 9 to 32 stages.
+K6_EDGES = (
+    (1, 1, 32), (64, 127, 48), (130, 129, 96), (257, 1_031, 128),
+    (1, 129, 200), (130, 1, 256), (64, 1_031, 400), (257, 127, 776),
+    (37, 300, 1_024), (130, 34_000, 768), (257, 33_795, 200),
+    (17_000, 200, 64), (37, 300, 1_040), (130, 1_031, 2_048),
+    (64, 34_000, 1_536),
+)
+
+
+def k6_edge_checks(dev):
+    """K6 against its plain version at K6_EDGES, error 0; the wrapper pads
+    (one corpus and one query copy) exactly where D/2 is off 16 bytes."""
+    from osr_tpu_torch.ops import matmul as M
+
+    for b, n, d in K6_EDGES:
+        rng = np.random.RandomState(b * n + d)
+        args = tuple(torch.from_numpy(a).to(dev) for a in (
+            rng.randint(-128, 128, (b, d)).astype(np.int8),
+            rng.randint(0, 256, (n, d // 2)).astype(np.uint8),
+            (rng.rand(b) / 127).astype(np.float32),
+            (rng.rand(n) / 7).astype(np.float32),
+        ))
+        before = dict(M.PAD_COPIES)
+        err = exact("int4_similarity", M.int4_similarity(*args),
+                    M.int4_similarity_plain(*args))
+        padded = int((d // 2) % M.PACKED_ALIGN != 0)
+        if M.PAD_COPIES != {k: v + padded for k, v in before.items()}:
+            fail(f"K6 at D={d}: operand copies {M.PAD_COPIES}, before "
+                 f"{before}")
+        log(f"K6 edge B={b} N={n} D={d}: max_abs_err={err:.3e}, operand "
+            f"copies {padded}")
 
 
 def device_corpus(n, dim, seed, dev):
@@ -1201,6 +1275,7 @@ def check_dense_results(scores, ids, n_queries, n_docs):
 def dense_path(quantization, emb, doc_ids, queries, dev):
     """The dense main path for one quantization at full width, its checks
     and numbers. Returns (kernel records, launches of the run, summary)."""
+    from osr_tpu_torch.ops import matmul as matmul_ops
     from osr_tpu_torch.ops import quantize as qz
     from osr_tpu_torch.ops import quantize_kernels as Q
     from osr_tpu_torch.retrieval.engine import (
@@ -1220,10 +1295,14 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = all_launches()
+    copies = dict(matmul_ops.PAD_COPIES)
     label = f"dense {quantization} {len(doc_ids):,} x {DENSE_DIM}"
     log(f"{label}: engine built in {build_s:.2f} s (backend {eng.backend}); "
         f"{len(queries)} queries in {secs:.2f} s; launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }; K6 operand copies "
+        f"{copies}")
+    if any(copies.values()):
+        fail(f"{label}: K6's wrapper copied operands ({copies})")
     if eng.backend != "cuda":
         fail(f"{label}: the engine does not take the CUDA kernels")
     for k in ("quantize_symmetric", sim):
@@ -1461,6 +1540,8 @@ def main():
     ):
         rows.append(kernel_numbers(name, *bench_case(eng, texts)))
         torch.cuda.empty_cache()
+    k1_is_k2_scores(*bench_case(eng8, texts))
+    log("FiQA shape int8: K1's scores equal K2's bit for bit")
     for dtype, eng in (("int8", eng8), ("int4", eng4)):
         blocktopm_is_topm_of_blockmax(*bench_case(eng, texts))
         log(f"FiQA shape {dtype}: K4 equals the per-block top-{NARROW_M} "

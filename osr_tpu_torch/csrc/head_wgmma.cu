@@ -1,19 +1,23 @@
 // Masked sparse-head kernels for Hopper (sm_90a): TMA ring + wgmma.
 //
-// Replaces the Pallas kernels of osr_tpu/ops/pallas/head.py that the
-// block-pruned and extraction paths run, for both head dtypes:
+// Replaces the Pallas kernels of osr_tpu/ops/pallas/head.py, for both head
+// dtypes:
+//   K1    _head_kernel               int8 head   (scores only; the int8
+//                                                 path below the
+//                                                 block-prune floor)
 //   K2    _head_blockmax_kernel      int8 head   (scores + per-128-row
 //                                                 block maxima)
 //   K3    _head_blockmax_kernel_i4   int4 head   (the same)
 //   K4    _make_blocktopm_kernel + _blocktopm_epilogue, int8 and int4 heads
 //         (per-128-row-block top-m (value, row); the scores are never
 //         written)
-// K1 (_head_kernel, scores only, int8) stays in head.cu.
+// osr_tpu has no int4 scores-only kernel, so K1 is instantiated for int8
+// only.
 //
 // What it computes, for a query batch q whose per-column head scales are
 // already folded in and rounded to bf16 by the wrapper (ops/head.py):
 //   s[b, r]    = valid[r] ? sum_f q[b, f] * code[r, f] : -inf   (f32 accum)
-//   out[b, r]  = s[b, r]                                      (K2, K3)
+//   out[b, r]  = s[b, r]                                      (K1, K2, K3)
 //   bmax[g, b] = max over r in [128 g, 128 g + 128) of s[b, r] (K2, K3)
 //   vals[b, g, :m], rows[b, g, :m] = the m largest s[b, r] of block g in
 //     descending order, ties to the lowest row (K4): a stable descending
@@ -27,8 +31,8 @@
 //   c, the high nibble column HW + c (codes 0..15). q is (B, 2 HW) bf16.
 // Codes are exact in bf16, so each product is exact and only the f32
 // summation order differs from the plain PyTorch version. The kernels of
-// one dtype share one main loop, so K4's values are bit for bit the
-// per-block top-m of K2's (K3's) scores.
+// one dtype share one main loop, so K1's scores are bit for bit K2's, and
+// K4's values are bit for bit the per-block top-m of K2's (K3's) scores.
 //
 // Bound on an H100: the tensor cores. At the FiQA bench shape (B=3,328,
 // R=57,728, F=2,048): 7.87e11 FLOP against 989 TFLOP/s bf16 is 0.7957 ms;
@@ -71,9 +75,10 @@
 //   next decodes; then the previous stage is released.
 // - Epilogues. The accumulators (head row 64 wg + 16 w + g (+ 8), query
 //   8 j + 2 t + e for lane (g, t) of warp w, j < 16, e < 2) go to a
-//   (128 queries x 128 rows) f32 tile in the freed ring. K2/K3 then write
-//   one query's 128 scores per warp instruction (512 contiguous bytes) and
-//   reduce their maximum over the warp. K4 gives each quad of lanes one
+//   (128 queries x 128 rows) f32 tile in the freed ring. K1/K2/K3 then
+//   write one query's 128 scores per warp instruction (512 contiguous
+//   bytes); K2/K3 reduce their maximum over the warp. K4 gives each quad of
+//   lanes one
 //   query (lane t takes rows 8 j + 2 t + e) and runs m rounds of a
 //   32-value scan (a 32-bit taken mask) and two xor shuffles keeping the
 //   larger value, else the lower row.
@@ -85,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -98,6 +105,7 @@ constexpr int kMaxM = 16;  // K4's largest m (ops/head.py:BLOCKTOPM_MAX_M)
 
 constexpr int kEpiBlockMax = 0;  // K2/K3: masked scores + block maxima
 constexpr int kEpiTopM = 1;      // K4: per-block top-m (value, row)
+constexpr int kEpiScores = 2;    // K1: masked scores only
 
 // Shared memory, from a 1024-byte aligned base (128B swizzle repeats every
 // 8 rows of 128 bytes). Stage s: the two query tiles, then the raw head
@@ -118,69 +126,6 @@ struct Geometry {
                 "the score tile must fit in the ring");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and TMA ----------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the completion of the barrier's phase with this parity. A wait
-// that lasts 10 s cannot end (a lost arrival): trap, so that the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > 10000000000ull) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
 // ---- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a K-major tile with 128B swizzle:
@@ -191,28 +136,6 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
-
-// Pins fragment registers at this point of the program: before
-// wgmma.fence it keeps the compiler from sinking their decode past the
-// fence (a non-wgmma definition of a wgmma input inside the pipeline makes
-// ptxas serialize it).
-__device__ __forceinline__ void keep_live(uint32_t (&a)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d (64 x 128, f32, this thread's 64 values) = a (64 x 16, this thread's
@@ -392,6 +315,7 @@ __device__ __forceinline__ void consume_stage(
 //        (B, 2 HW) bf16; box 64 columns x 128 rows, 128B swizzle
 // th:    (R, HW) head bytes; box kRowBytes x 128 rows
 // valid: (R,) bool
+// K1:    out (B, R) f32
 // K2/K3: out (B, R) f32;  aux (G, B) f32 block maxima, G = ceil(R / 128)
 // K4:    out (B, G, m) f32 values;  rows (B, G, m) int32;  1 <= m <= kMaxM
 template <bool kInt8, int kEpi>
@@ -486,11 +410,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
   consumer_barrier();
 
-  if constexpr (kEpi == kEpiBlockMax) {
+  if constexpr (kEpi == kEpiBlockMax || kEpi == kEpiScores) {
     // One query (a tile row) per warp instruction: lane l takes head rows
     // n0 + 4 l .. + 3, masks them, stores them as one float4 (the warp
-    // writes the row's 512 contiguous bytes) and reduces their maximum
-    // over the warp.
+    // writes the row's 512 contiguous bytes) and, for the block maxima,
+    // reduces their maximum over the warp.
     const int n = n0 + 4 * lane;
     const bool vec = (R & 3) == 0 && n + 3 < R &&
                      (reinterpret_cast<uintptr_t>(valid + n) & 3) == 0;
@@ -524,12 +448,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (n + 2 < R) dst[2] = x.z;
         if (n + 3 < R) dst[3] = x.w;
       }
-      float rmax = fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w));
+      if constexpr (kEpi == kEpiBlockMax) {
+        float rmax = fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w));
 #pragma unroll
-      for (int sh = 16; sh >= 1; sh >>= 1) {
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, sh));
+        for (int sh = 16; sh >= 1; sh >>= 1) {
+          rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, sh));
+        }
+        if (lane == 0) aux[static_cast<size_t>(rt) * B + mq] = rmax;
       }
-      if (lane == 0) aux[static_cast<size_t>(rt) * B + mq] = rmax;
     }
   } else {
     // Top-m: the quad of lane (g, t) takes queries 64 wg + 16 w + g + 8 h
@@ -592,50 +518,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled lives in libcuda; it is found at run time through
-// the CUDA runtime, so that the library links against the runtime alone.
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D row-major tensor map: cols x rows elements of elem_bytes, a box of
-// box_cols x 128 rows.
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-               const void* base, int cols, int rows, int box_cols,
-               CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), 128};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool kInt8, int kEpi>
 int launch(const void* q, const void* head, const void* valid, void* out,
            void* aux, void* rows, int B, int R, int HW, int m,
@@ -682,6 +564,14 @@ int launch(const void* q, const void* head, const void* valid, void* out,
 // Each entry point returns a cudaError_t value: 0 on a successful launch.
 // q is the wrapper's bf16 query operand (see the top of this file), head
 // the (R, HW) head bytes, valid (R,) bool.
+
+// K1: (B, R) f32 masked scores of an int8 head; bit for bit K2's scores.
+extern "C" int osr_head_i8_scores(const void* q, const void* head,
+                                  const void* valid, void* out, int B, int R,
+                                  int HW, void* stream) {
+  return launch<true, kEpiScores>(q, head, valid, out, nullptr, nullptr, B,
+                                  R, HW, 0, static_cast<cudaStream_t>(stream));
+}
 
 // K2: (B, R) f32 masked scores and (G, B) f32 block maxima of an int8
 // head.

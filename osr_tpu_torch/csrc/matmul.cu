@@ -1,44 +1,35 @@
-// Quantized dense similarity kernels for Hopper (sm_90a).
+// Quantized dense similarity kernel for Hopper (sm_90a): K5, the int8
+// corpus.
 //
-// Replaces the Pallas kernels of osr_tpu/ops/pallas/matmul.py:
-//   K5 _kernel    (:24), launched via int8_similarity_pallas (int8 corpus)
-//   K6 _kernel_i4 (:36), launched via int4_similarity_pallas (int4 corpus)
+// Replaces osr_tpu/ops/pallas/matmul.py:_kernel (:24), launched via
+// int8_similarity_pallas. K6 (_kernel_i4, the int4 corpus) is
+// similarity_wgmma.cu.
 //
-// What they compute, for int8 queries q (B, D) with scales qs (B,) and a
-// corpus d of N rows with scales ds (N,):
+// What it computes, for int8 queries q (B, D) with scales qs (B,) and an
+// int8 corpus d (N, D) with scales ds (N,):
 //   acc[b, n] = sum_c q[b, c] * d[n, c]                (exact, in int32)
 //   out[b, n] = (float(acc[b, n]) * qs[b]) * ds[n]     (two f32 multiplies)
-// The corpus is (N, D) int8 (K5) or (N, D/2) uint8 of signed nibbles (K6):
-// byte c's low nibble is logical column c and its high nibble column
-// c + D/2, each a two's-complement code decoded as ((v & 0xF) ^ 8) - 8.
-// This is not the sparse head's int4 layout (head.cu), whose codes are
-// unsigned with the sign in the column scale.
 //
 // Numerics. The integer sum is exact, the int32 -> f32 conversion rounds to
 // nearest, and the epilogue multiplies in the stated order with no FMA, so
-// the kernels equal the plain PyTorch versions (ops/matmul.py) bit for bit.
+// the kernel equals the plain PyTorch version (ops/matmul.py) bit for bit.
 //
 // Bound. At the dense path's shape (B = 1,024 queries, N = 1,000,000 docs,
 // D = 768) the products are 1.57e15 int8 operations, 0.79 ms at 1,979 TOP/s,
-// but the bytes are 0.77 GB of int8 corpus (0.38 GB int4) plus the 4.10 GB
-// (B, N) f32 output, 1.45 ms (1.34 ms) at 3.35 TB/s. So both kernels are
-// bound by bytes, and by the output write most of all: only a design that
-// never writes the (B, N) matrix (selection fused into the epilogue) can go
-// below it.
+// but the bytes are 0.77 GB of corpus plus the 4.10 GB (B, N) f32 output,
+// 1.45 ms at 3.35 TB/s. So the kernel is bound by bytes, and by the output
+// write most of all.
 //
 // Design. One thread block owns a (128 queries x 128 docs) output tile. The
-// contraction walks the width in chunks of 128 logical columns staged
-// through shared memory: the query chunk is copied as is, and the corpus
-// chunk as int8, or as 64 packed bytes decoded with byte-wise SIMD
-// (__vsub4) into their 64 low-nibble and 64 high-nibble columns, with the
-// query chunk gathered from columns c and D/2 + c to match. The next chunk's
-// global loads are issued into registers before the current chunk is
-// multiplied. Eight warps (2 along queries x 4 along docs) each run int8
-// mma.sync m16n8k32 with s32 accumulators on a 64 x 32 sub-tile, fed by
-// ldmatrix from padded (conflict-free) rows. The kernel masks ragged B, N
-// and D itself (zero-filled loads, guarded stores). Consecutive blocks walk
-// the query tiles of one corpus tile, so each corpus tile is read from HBM
-// about once and the queries stay in L2. wgmma and TMA are the next step.
+// contraction walks the width in chunks of 128 columns staged through
+// shared memory. The next chunk's global loads are issued into registers
+// before the current chunk is multiplied. Eight warps (2 along queries x 4
+// along docs) each run int8 mma.sync m16n8k32 with s32 accumulators on a 64
+// x 32 sub-tile, fed by ldmatrix from padded (conflict-free) rows. The
+// kernel masks ragged B, N and D itself (zero-filled loads, guarded
+// stores). Consecutive blocks walk the query tiles of one corpus tile, so
+// each corpus tile is read from HBM about once and the queries stay in L2.
+// similarity_wgmma.cu's persistent TMA + wgmma design is the next step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +38,7 @@ namespace {
 
 constexpr int kTileM = 128;       // queries per block
 constexpr int kTileN = 128;       // docs per block
-constexpr int kChunk = 128;       // logical columns (int8 bytes) per chunk
+constexpr int kChunk = 128;       // columns (int8 bytes) per chunk
 constexpr int kLd = kChunk + 16;  // padded shared row, in bytes
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kWarpM = 64;        // warp sub-tile: queries
@@ -72,13 +63,6 @@ __device__ __forceinline__ uint4 load16(const int8_t* row, int col,
   return r;
 }
 
-// Four packed bytes -> their four signed low (hi = false) or high nibbles
-// as int8 codes: ((v & 0xF) ^ 8) - 8, byte by byte.
-__device__ __forceinline__ uint32_t nibbles(uint32_t w, bool hi) {
-  const uint32_t n = (hi ? (w >> 4) : w) & 0x0F0F0F0Fu;
-  return __vsub4(n ^ 0x08080808u, 0x08080808u);
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   const unsigned addr =
       static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -98,11 +82,9 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
 }
 
 // q:   (B, D) int8;  qs: (B,) f32
-// d:   (N, D) int8 (kInt4 false) or (N, D/2) packed uint8 (kInt4 true)
-// ds:  (N,) f32;     out: (B, N) f32
-// kAligned: D % 16 == 0 (int8) or D % 32 == 0 (int4), q and d 16-byte
-// aligned.
-template <bool kInt4, bool kAligned>
+// d:   (N, D) int8;  ds: (N,) f32;  out: (B, N) f32
+// kAligned: D % 16 == 0, q and d 16-byte aligned.
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
     similarity_kernel(const int8_t* __restrict__ q,
                       const int8_t* __restrict__ d,
@@ -121,43 +103,30 @@ __global__ void __launch_bounds__(kThreads)
   const int nt = blockIdx.x / n_qtiles;
   const int m0 = qt * kTileM;
   const int n0 = nt * kTileN;
-  const int H = D / 2;                          // packed width (int4)
-  const int DW = kInt4 ? H : D;                 // corpus row bytes
-  constexpr int kDocBytes = kInt4 ? kChunk / 2 : kChunk;  // per chunk
-  const int n_chunks = (DW + kDocBytes - 1) / kDocBytes;
+  const int n_chunks = (D + kChunk - 1) / kChunk;
 
-  // Register staging for one chunk: 4 x 16 query bytes and 4 (int8) or
-  // 2 (int4) x 16 corpus bytes per thread.
-  constexpr int kDocVecs = kInt4 ? 2 : 4;
+  // Register staging for one chunk: 4 x 16 query bytes and 4 x 16 corpus
+  // bytes per thread.
   uint4 qreg[4];
-  uint4 dreg[kDocVecs];
+  uint4 dreg[4];
 
   auto load_chunk = [&](int c) {
-    const int k0 = c * kDocBytes;
+    const int k0 = c * kChunk;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * kThreads;
       const int row = idx >> 3;
       const int seg = idx & 7;  // 16 bytes per segment
       const int m = m0 + row;
-      const int8_t* qrow = q + static_cast<size_t>(m) * D;
-      if (kInt4) {
-        // Segments 0-3: low-nibble columns k0 + 16 s; 4-7: the same
-        // columns of the high half, D/2 + k0 + 16 s.
-        qreg[i] = load16<kAligned>(seg < 4 ? qrow : qrow + H,
-                                   k0 + (seg & 3) * 16, H, m < B);
-      } else {
-        qreg[i] = load16<kAligned>(qrow, k0 + seg * 16, D, m < B);
-      }
+      qreg[i] = load16<kAligned>(q + static_cast<size_t>(m) * D,
+                                 k0 + seg * 16, D, m < B);
     }
 #pragma unroll
-    for (int i = 0; i < kDocVecs; ++i) {
+    for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * kThreads;
-      const int row = kInt4 ? (idx >> 2) : (idx >> 3);
-      const int seg = kInt4 ? (idx & 3) : (idx & 7);
-      const int n = n0 + row;
-      dreg[i] = load16<kAligned>(d + static_cast<size_t>(n) * DW,
-                                 k0 + seg * 16, DW, n < N);
+      const int n = n0 + (idx >> 3);
+      dreg[i] = load16<kAligned>(d + static_cast<size_t>(n) * D,
+                                 k0 + (idx & 7) * 16, D, n < N);
     }
   };
 
@@ -168,20 +137,9 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint4*>(&sq[idx >> 3][(idx & 7) * 16]) = qreg[i];
     }
 #pragma unroll
-    for (int i = 0; i < kDocVecs; ++i) {
+    for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * kThreads;
-      if (kInt4) {
-        const int row = idx >> 2, seg = idx & 3;
-        const uint4 v = dreg[i];
-        *reinterpret_cast<uint4*>(&sd[row][seg * 16]) =
-            make_uint4(nibbles(v.x, false), nibbles(v.y, false),
-                       nibbles(v.z, false), nibbles(v.w, false));
-        *reinterpret_cast<uint4*>(&sd[row][kChunk / 2 + seg * 16]) =
-            make_uint4(nibbles(v.x, true), nibbles(v.y, true),
-                       nibbles(v.z, true), nibbles(v.w, true));
-      } else {
-        *reinterpret_cast<uint4*>(&sd[idx >> 3][(idx & 7) * 16]) = dreg[i];
-      }
+      *reinterpret_cast<uint4*>(&sd[idx >> 3][(idx & 7) * 16]) = dreg[i];
     }
   };
 
@@ -264,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kInt4, bool kAligned>
+template <bool kAligned>
 int launch(const void* q, const void* d, const void* qs, const void* ds,
            void* out, int B, int N, int D, cudaStream_t stream) {
   const int n_qtiles = (B + kTileM - 1) / kTileM;
@@ -272,7 +230,7 @@ int launch(const void* q, const void* d, const void* qs, const void* ds,
   const long long blocks = static_cast<long long>(n_qtiles) * n_ntiles;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  similarity_kernel<kInt4, kAligned>
+  similarity_kernel<kAligned>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const int8_t*>(q), static_cast<const int8_t*>(d),
           static_cast<const float*>(qs), static_cast<const float*>(ds),
@@ -286,22 +244,18 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// Returns a cudaError_t value: 0 on a successful launch. D is the logical
-// width; with int4 = 1 the corpus rows hold D / 2 packed bytes (D even).
+// K5: (B, N) f32 similarity of an int8 corpus. Returns a cudaError_t
+// value: 0 on a successful launch.
 extern "C" int osr_similarity(const void* q, const void* d, const void* qs,
                               const void* ds, void* out, int B, int N, int D,
-                              int int4, void* stream) {
-  if (B < 0 || N < 0 || D <= 0 || (int4 && D % 2)) {
+                              void* stream) {
+  if (B < 0 || N < 0 || D <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool al = D % (int4 ? 32 : 16) == 0 && aligned16(q) && aligned16(d);
-  if (int4) {
-    return al ? launch<true, true>(q, d, qs, ds, out, B, N, D, s)
-              : launch<true, false>(q, d, qs, ds, out, B, N, D, s);
-  }
-  return al ? launch<false, true>(q, d, qs, ds, out, B, N, D, s)
-            : launch<false, false>(q, d, qs, ds, out, B, N, D, s);
+  const bool al = D % 16 == 0 && aligned16(q) && aligned16(d);
+  return al ? launch<true>(q, d, qs, ds, out, B, N, D, s)
+            : launch<false>(q, d, qs, ds, out, B, N, D, s);
 }
 
 extern "C" const char* osr_cuda_error_string(int code) {

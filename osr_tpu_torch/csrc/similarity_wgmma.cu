@@ -1,0 +1,459 @@
+// int4 dense similarity kernel for Hopper (sm_90a): K6, a persistent TMA +
+// integer wgmma kernel whose output store overlaps the next tile.
+//
+// Replaces osr_tpu/ops/pallas/matmul.py:_kernel_i4 (:36), launched via
+// int4_similarity_pallas. K5 (the int8 corpus) is matmul.cu.
+//
+// What it computes, for int8 queries q (B, D) with scales qs (B,) and a
+// corpus of N rows of D/2 packed bytes with scales ds (N,):
+//   acc[b, n] = sum_c q[b, c] * code[n, c]             (exact, in int32)
+//   out[b, n] = (float(acc[b, n]) * qs[b]) * ds[n]     (two f32 multiplies)
+// Byte c's low nibble is column c and its high nibble column c + D/2, each
+// a two's-complement code ((v & 0xF) ^ 8) - 8. The integer sum is exact,
+// the int32 -> f32 conversion rounds to nearest and the multiplies keep
+// their order with no FMA, so the kernel equals the plain PyTorch version
+// (ops/matmul.py:int4_similarity_plain) bit for bit.
+//
+// Operands, built by the wrapper (ops/matmul.py:int4_kernel_operands):
+// the corpus (N, HP) uint8 with HP, the packed width, a multiple of 16
+// (TMA's stride unit; a narrower row is zero-padded, and zero bytes decode
+// to 0), and the queries (B, 2 HP) int8: columns [0, D/2) of q at 0 and
+// [D/2, D) at HP, zeros elsewhere. At HP = D/2 that is q itself.
+//
+// Bound on an H100. At the dense path's shape (B = 1,024, N = 1,000,000,
+// D = 768) the products are 1.57e15 int8 operations, 0.79 ms at 1,979
+// TOP/s; the bytes are 0.38 GB of corpus and the 4.10 GB (B, N) f32 output,
+// 1.34 ms at 3.35 TB/s. So the output write bounds it: each SM has to
+// store a 64 KB tile every ~2.6 us (473.5 tiles per SM), while a tile's
+// tensor math takes ~1.7 us. The design keeps the store stream busy.
+//
+// Design. One block per SM (the grid is the SM count), 288 threads: two
+// consumer warpgroups (64 docs each) and one producer warp. A block walks
+// (128 queries x 128 docs) output tiles tile = blockIdx.x + i * gridDim.x,
+// the query tiles of one corpus tile first, so the corpus is read from HBM
+// about once and the queries stay in L2.
+// - TMA ring. One producer thread keeps kStages stages in flight with
+//   cp.async.bulk.tensor.2d, each guarded by a full and an empty mbarrier;
+//   it runs on into the next tile's stages while the consumers are in an
+//   epilogue. A stage covers 128 logical columns: 64 packed bytes of the
+//   128 corpus rows (8 KB, raw) and two query tiles of 128 queries x 64
+//   bytes, columns [c, c + 64) and [HP + c, HP + c + 64): 24 KB, 64B
+//   swizzle throughout. B, N and HP off the tiles come from TMA's zero
+//   fill; a low query tile that runs into the high half meets zero-filled
+//   corpus bytes there.
+// - Register A operand. The corpus rows are wgmma's A (M = docs), decoded
+//   in registers; the queries are B, from shared memory, K-major. One
+//   32-bit load of 4 packed bytes gives a thread 4 low-nibble codes (a
+//   register of a low k-step) and 4 high-nibble codes (the same register
+//   of the matching high k-step): 8 loads a stage, conflict free under the
+//   swizzle. Each code becomes v | (v & 8 ? 0xF0 : 0), byte for byte, in
+//   three integer ops per 4 codes. The fragments are double buffered
+//   across stages and pinned before wgmma.fence, or ptxas serializes the
+//   pipeline.
+// - wgmma m64n128k32 s8 x s8 -> s32: 4 k-steps a stage (two low, two
+//   high). wait_group 1 keeps one stage's products in flight while the next
+//   decodes; each tile's first product has scale-d = 0.
+// - Epilogue. Each thread's scale (of a query or a doc of the tile) is
+//   loaded into a register when the tile's main loop starts, so that its
+//   latency hides there. The accumulators (doc 64 wg + 16 w + g (+ 8),
+//   query 8 j + 2 t + e) are converted and scaled in registers and
+//   written, transposed, to a dedicated (128 queries x 128 docs) f32
+//   staging tile: four boxes of 32 docs, 128B swizzle, so the scalar
+//   writes are conflict free. One thread then issues four TMA stores
+//   (cp.async.bulk.tensor, one bulk group) and the block goes on to the
+//   next tile; before the staging tile is written again it waits only for
+//   the previous store's read of it
+//   (cp.async.bulk.wait_group.read), so a tile's store overlaps the next
+//   tile's main loop. TMA's store clips rows past B and columns past N. An
+//   output whose row stride is not a multiple of 16 bytes (N % 4 != 0)
+//   has no tensor map: there (kTmaStore false) the warps store the staging
+//   tile with guarded plain stores, one query row of 128 bytes a box.
+// Shared memory: 6 stages (144 KB) + staging (64 KB) + 1 KB alignment.
+// Measured on an H100 and not taken (PERF.md, PR 7): query tiles kept in
+// shared memory while a block walks the corpus (a third of the L2 reads,
+// but no faster), the two warpgroups taking alternate 64-doc halves in
+// turn (slower: one warpgroup alone issues its dependent products at well
+// under the tensor rate), and two accumulator sets per warpgroup (ptxas
+// caps a block of this size at 168 registers, then spills and serializes).
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int kTileM = 128;       // queries per tile
+constexpr int kTileN = 128;       // docs per tile
+constexpr int kChunkBytes = 64;   // packed corpus bytes a row per stage
+constexpr int kStages = 6;        // TMA ring depth
+constexpr int kConsumers = 256;   // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // + one producer warp
+// Stage s, from a 1024-byte aligned base: the low and high query tiles,
+// then the raw corpus tile, 8 KB each (64-byte rows, 64B swizzle).
+constexpr int kBoxBytes = kTileM * kChunkBytes;
+constexpr int kStageBytes = 3 * kBoxBytes;
+// The staging tile: four boxes of (128 queries x 32 docs) f32, 128-byte
+// rows, 128B swizzle.
+constexpr int kOutBoxCols = 32;
+constexpr int kOutBoxBytes = kTileM * kOutBoxCols * 4;
+constexpr int kStagingBytes = (kTileN / kOutBoxCols) * kOutBoxBytes;
+constexpr int kSmemBytes = kStages * kStageBytes + kStagingBytes + 1024;
+
+// Shared-memory matrix descriptor of a K-major tile with 64B swizzle: rows
+// of 64 bytes, 8-row groups 512 bytes apart (SBO); the leading byte offset
+// is unused for this layout. A k-step of 32 int8 (32 bytes) inside the
+// 64-byte row adds 2 to the address field.
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{512 >> 4} << 32) | (uint64_t{2} << 62);
+}
+
+// d (64 x 128, s32, this thread's 64 values) = a (64 x 32 s8, this
+// thread's fragment in registers) * b (32 x 128 s8, shared memory) +
+// (accumulate ? d : 0).
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int* d,
+                                                       const uint32_t* a,
+                                                       uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// ---- decode -----------------------------------------------------------------
+
+// Four packed bytes -> the signed codes of their low nibbles (*lo) and of
+// their high nibbles (*hi), byte for byte: nibble v becomes v | (v & 8 ?
+// 0xF0 : 0), which is ((v & 0xF) ^ 8) - 8 as a two's-complement byte.
+// (n & 0x08080808) * 0x1E puts 0xF0 in each byte whose nibble has its sign
+// bit set, with no carry into the next byte.
+__device__ __forceinline__ void nibbles_to_s8(uint32_t x, uint32_t* lo,
+                                              uint32_t* hi) {
+  const uint32_t h = x >> 4;
+  *lo = (x & 0x0F0F0F0Fu) | ((x & 0x08080808u) * 0x1Eu);
+  *hi = (h & 0x0F0F0F0Fu) | ((h & 0x08080808u) * 0x1Eu);
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// This thread's A fragments of one stage, decoded from the raw tile. For
+// the warp's rows row0 = 64 wg + 16 w + g and row0 + 8, the wgmma A layout
+// of a k32 step wants k slots 4 t .. 4 t + 3 in regs 0 (row0) and 1 (row0
+// + 8), and slots 16 + 4 t .. in regs 2 and 3. Packed bytes 32 kk + 16 o +
+// 4 t .. + 3 (o < 2) of a row hold low k-step kk's slots 16 o + 4 t .. in
+// their low nibbles (a[kk]) and high k-step kk's in their high nibbles
+// (a[2 + kk]). 64B swizzle: 16-byte chunk c of row r sits at chunk c ^ ((r
+// >> 1) & 3), so a warp's 32 lanes (8 rows, 4 words) hit 32 banks.
+__device__ __forceinline__ void decode_fragments(uint32_t raw, int row0,
+                                                 int t, uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    const uint32_t row = raw + r * kChunkBytes + 4 * t;
+    const int sw = (r >> 1) & 3;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const uint32_t x = lds_u32(row + (((2 * kk + o) ^ sw) << 4));
+        nibbles_to_s8(x, &a[kk][2 * o + h], &a[2 + kk][2 * o + h]);
+      }
+  }
+}
+
+__device__ __forceinline__ void consumer_barrier() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// ---- the kernel -------------------------------------------------------------
+
+// Stage it (the block's running count; k-th of its tile) of a consumer
+// warpgroup's main loop: wait for the stage, decode its corpus bytes into
+// the fragment buffer a (free: its last products were retired by the
+// previous stage's wait), issue the stage's 4 products, then retire stage
+// it - 1's products and release its stage to the producer (within the
+// tile; the tile's last stage is released after its final wait).
+__device__ __forceinline__ void consume_stage(int it, int k, uint8_t* smem,
+                                              uint64_t* full_bar,
+                                              uint64_t* empty_bar, int row0,
+                                              int lane, uint32_t (&a)[4][4],
+                                              int* acc) {
+  const int s = it % kStages;
+  uint8_t* stage = smem + s * kStageBytes;
+  mbar_wait(&full_bar[s], (it / kStages) & 1);
+  decode_fragments(smem_u32(stage + 2 * kBoxBytes), row0, lane & 3, a);
+  const uint64_t b_lo = sw64_desc(stage);
+  const uint64_t b_hi = sw64_desc(stage + kBoxBytes);
+  keep_live(a);
+  wgmma_fence();
+  wgmma_m64n128k32_s8_rs(acc, a[0], b_lo, k > 0);
+  wgmma_m64n128k32_s8_rs(acc, a[1], b_lo + 2, 1);
+  wgmma_m64n128k32_s8_rs(acc, a[2], b_hi, 1);
+  wgmma_m64n128k32_s8_rs(acc, a[3], b_hi + 2, 1);
+  wgmma_commit();
+  wgmma_wait<1>();
+  if (k > 0 && lane == 0) mbar_arrive(&empty_bar[(it - 1) % kStages]);
+}
+
+// tq:  (B, 2 HP) int8 queries; box 64 bytes x 128 rows, 64B swizzle
+// td:  (N, HP) uint8 packed corpus; box 64 bytes x 128 rows, 64B swizzle
+// to:  (B, N) f32 output; box 32 x 128, 128B swizzle (kTmaStore only)
+// qs (B,), ds (N,) f32 scales; out (B, N) f32 (the plain stores)
+template <bool kTmaStore>
+__global__ void __launch_bounds__(kThreads, 1)
+    similarity_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap td,
+                            const __grid_constant__ CUtensorMap to,
+                            const float* __restrict__ qs,
+                            const float* __restrict__ ds,
+                            float* __restrict__ out, int B, int N, int HP,
+                            int n_qtiles, int n_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStages];
+  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  __shared__ __align__(16) float s_qs[kTileM];
+  __shared__ float s_ds[kTileN];
+  // Offset, not cast, to the aligned base: the compiler then still knows
+  // the pointer is shared memory.
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* staging = smem + kStages * kStageBytes;
+
+  const int tid = threadIdx.x;
+  const int n_chunks = (HP + kChunkBytes - 1) / kChunkBytes;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], kConsumers / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer: one thread keeps the ring full, tile after tile.
+    if (tid == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile % n_qtiles) * kTileM;
+        const int n0 = (tile / n_qtiles) * kTileN;
+        for (int k = 0; k < n_chunks; ++k, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) {
+            mbar_wait(&empty_bar[s], ((it / kStages) - 1) & 1);
+          }
+          mbar_expect_tx(&full_bar[s], kStageBytes);
+          uint8_t* stage = smem + s * kStageBytes;
+          const int c = k * kChunkBytes;
+          tma_load_2d(stage, &tq, &full_bar[s], c, m0);
+          tma_load_2d(stage + kBoxBytes, &tq, &full_bar[s], HP + c, m0);
+          tma_load_2d(stage + 2 * kBoxBytes, &td, &full_bar[s], c, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers. The accumulators are written by each tile's first product
+  // (scale-d = 0) and read by its epilogue, never written by other
+  // instructions: those would make ptxas serialize the wgmma pipeline.
+  const int wg = tid >> 7;  // warpgroup: docs [64 wg, 64 wg + 64)
+  const int w = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = 64 * wg + 16 * w + g;  // this thread's docs: +0, +8
+  int acc[64];
+  uint32_t frag[2][4][4];  // A fragments, double buffered across stages
+
+  int base = 0;  // the block's running stage count at this tile's start
+  for (int tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, base += n_chunks) {
+    const int m0 = (tile % n_qtiles) * kTileM;
+    const int n0 = (tile / n_qtiles) * kTileN;
+    // This thread's scale for the epilogue (query m0 + tid, or doc n0 +
+    // tid - 128), loaded now so that its latency hides under the main loop.
+    const int si = tid < kTileM ? m0 + tid : n0 + tid - kTileM;
+    const float scale = tid < kTileM ? (si < B ? qs[si] : 0.0f)
+                                     : (si < N ? ds[si] : 0.0f);
+    int k = 0;
+    for (; k + 1 < n_chunks; k += 2) {  // two stages, one per buffer
+      consume_stage(base + k, k, smem, full_bar, empty_bar, row0, lane,
+                    frag[0], acc);
+      consume_stage(base + k + 1, k + 1, smem, full_bar, empty_bar, row0,
+                    lane, frag[1], acc);
+    }
+    if (k < n_chunks) {
+      consume_stage(base + k, k, smem, full_bar, empty_bar, row0, lane,
+                    frag[0], acc);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty_bar[(base + n_chunks - 1) % kStages]);
+
+    // Epilogue. The scales of this tile's queries and docs go to shared
+    // memory (the previous epilogue's reads of them ended before its
+    // second barrier). The staging tile is free once the previous tile's
+    // store has read it (TMA) or every warp has stored it (plain).
+    if (tid < kTileM) {
+      s_qs[tid] = scale;
+    } else {
+      s_ds[tid - kTileM] = scale;
+    }
+    if (kTmaStore && tid == 0) bulk_wait_read<0>();
+    consumer_barrier();
+    // acc[4 j + 2 h + e] is (doc row0 + 8 h, query 8 j + 2 t + e): box
+    // doc / 32, row query, 16-byte chunk ((doc % 32) / 4) ^ (query & 7).
+    const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 q2 =
+          *reinterpret_cast<const float2*>(&s_qs[8 * j + 2 * t]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int doc = row0 + 8 * h;
+          const int ql = 8 * j + 2 * t + e;
+          const float v = __fmul_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
+                        e ? q2.y : q2.x),
+              dsc[h]);
+          *reinterpret_cast<float*>(
+              staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
+              ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
+        }
+    }
+    if constexpr (kTmaStore) fence_proxy_async();
+    consumer_barrier();
+    if constexpr (kTmaStore) {
+      if (tid == 0) {
+#pragma unroll
+        for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
+          if (n0 + kOutBoxCols * i < N) {
+            tma_store_2d(&to, staging + i * kOutBoxBytes,
+                         n0 + kOutBoxCols * i, m0);
+          }
+        }
+        bulk_commit();
+      }
+    } else {
+      // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of box
+      // x (conflict free) and writes it: 128 contiguous bytes a box.
+      const int wp = tid >> 5;
+      for (int i = 0; i < kTileM / 8; ++i) {
+        const int ql = wp + 8 * i;
+        const int mq = m0 + ql;
+        if (mq >= B) break;
+#pragma unroll
+        for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
+          const int n = n0 + kOutBoxCols * x + lane;
+          const float v = *reinterpret_cast<const float*>(
+              staging + x * kOutBoxBytes + ql * 128 +
+              (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
+          if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
+        }
+      }
+    }
+  }
+  if (kTmaStore && tid == 0) bulk_wait_all();
+}
+
+template <bool kTmaStore>
+int launch(const void* q, const void* d, const void* qs, const void* ds,
+           void* out, int B, int N, int HP, cudaStream_t stream) {
+  const int n_qtiles = (B + kTileM - 1) / kTileM;
+  const int n_ntiles = (N + kTileN - 1) / kTileN;
+  const long long tiles = static_cast<long long>(n_qtiles) * n_ntiles;
+  if (tiles == 0) return 0;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, td, to;
+  if (!encode_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, 2 * HP, B,
+                 kChunkBytes, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_2d(&td, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, d, HP, N,
+                 kChunkBytes, CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kTmaStore) {
+    if (!encode_2d(&to, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, N, B,
+                   kOutBoxCols, CU_TENSOR_MAP_SWIZZLE_128B)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    to = td;  // unused
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(similarity_wgmma_kernel<kTmaStore>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  similarity_wgmma_kernel<kTmaStore><<<grid, kThreads, kSmemBytes, stream>>>(
+      tq, td, to, static_cast<const float*>(qs),
+      static_cast<const float*>(ds), static_cast<float*>(out), B, N, HP,
+      n_qtiles, static_cast<int>(tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// K6: (B, N) f32 similarity of a packed int4 corpus. q is the (B, 2 HP)
+// int8 query operand and d the (N, HP) corpus operand (see the top of this
+// file), both 16-byte aligned, HP % 16 == 0. Returns a cudaError_t value:
+// 0 on a successful launch.
+extern "C" int osr_similarity_i4(const void* q, const void* d,
+                                 const void* qs, const void* ds, void* out,
+                                 int B, int N, int HP, void* stream) {
+  if (B < 0 || N < 0 || HP <= 0 || HP % 16 != 0 || !aligned16(q) ||
+      !aligned16(d)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return N % 4 == 0 && aligned16(out)
+             ? launch<true>(q, d, qs, ds, out, B, N, HP, s)
+             : launch<false>(q, d, qs, ds, out, B, N, HP, s);
+}
+
+// Dynamic shared memory a launch requests, in bytes.
+extern "C" int osr_similarity_wgmma_smem_bytes() { return kSmemBytes; }
+
+extern "C" const char* osr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for
 ``sm_90a`` (Hopper), into its own shared library with a plain C
 interface under ``build/osr_tpu_torch/`` at the repository root, and is
 loaded with ctypes. Pointers and the CUDA stream cross the boundary as
-``c_void_p``. Libraries are named by a hash of their source and flags, so
-an edited source rebuilds. Sources build in parallel: one ``nvcc`` per
-file, all started together. Nothing is built when the module is imported.
+``c_void_p``. Libraries are named by a hash of their source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds. Sources build in parallel: one ``nvcc`` per file, all started
+together. Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -46,16 +47,17 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "head":
-        lib.osr_head_scores.restype = ci
-        lib.osr_head_scores.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
-    elif name == "head_wgmma":
+    if name == "head_wgmma":
+        lib.osr_head_i8_scores.restype = ci
+        lib.osr_head_i8_scores.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
         for dtype in ("i8", "i4"):
             blockmax = getattr(lib, f"osr_head_{dtype}_blockmax")
             blockmax.restype = ci
@@ -67,9 +69,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.osr_head_wgmma_smem_bytes.argtypes = [ci]
     elif name == "matmul":
         lib.osr_similarity.restype = ci
-        lib.osr_similarity.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
+        lib.osr_similarity.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    elif name == "similarity_wgmma":
+        lib.osr_similarity_i4.restype = ci
+        lib.osr_similarity_i4.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, vp,
         ]
+        lib.osr_similarity_wgmma_smem_bytes.restype = ci
+        lib.osr_similarity_wgmma_smem_bytes.argtypes = []
     elif name == "quantize":
         lib.osr_quantize_symmetric.restype = ci
         lib.osr_quantize_symmetric.argtypes = [

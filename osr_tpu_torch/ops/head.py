@@ -23,22 +23,23 @@ Wrappers, each with its plain version beside it:
   ``_make_blocktopm_kernel`` and ``_blocktopm_epilogue`` (via
   ``head_blocktopm_pallas`` and ``masked_head_blocktopm``).
 
-Two CUDA sources. K2, K3 and both K4s are one kernel template over a
+One CUDA source. K1, K2, K3 and both K4s are one kernel template over a
 Hopper main loop (``csrc/head_wgmma.cu``), instantiated per head dtype
-with two epilogues: a TMA ring of head and query tiles, the codes decoded
-to bf16 in registers, and ``wgmma`` with the head as its register operand
-and f32 accumulators. Within a dtype the epilogues share the main loop, so
-K4's values are bit for bit the per-block top-m of K2's (K3's) scores. K1
-is a bf16 ``mma.sync`` kernel (``csrc/head.cu``). The int8 kernels of
-``head_wgmma.cu`` read the query columns in their fragments' order:
-:func:`i8_kernel_query` permutes them. Bound on an H100 at the bench
-shape (B=3,328, R=57,728, F=2,048): 7.87e11 FLOP over 989 TFLOP/s bf16 =
-0.7957 ms against 0.27 ms of bytes, so the tensor cores bound them; K4
-per 1M-corpus chunk (B=2,048, R=500,096): 4.24 ms against 0.46 ms of
-bytes. Both designs own one (128 x 128) output tile per thread block, take
-the block maxima or top-m inside the block (no second pass over the (B, R)
-matrix), and order blocks so that each head tile stays in L2 while every
-query tile reads it. Details at the top of each source.
+with three epilogues (scores, scores + block maxima, per-block top-m; the
+scores-only one for int8 alone): a TMA ring of head and query tiles, the
+codes decoded to bf16 in registers, and ``wgmma`` with the head as its
+register operand and f32 accumulators. Within a dtype the epilogues share
+the main loop, so K1's scores are bit for bit K2's, and K4's values are
+bit for bit the per-block top-m of K2's (K3's) scores. The int8 kernels
+read the query columns in their fragments' order: :func:`i8_kernel_query`
+permutes them. Bound on an H100 at the bench shape (B=3,328, R=57,728,
+F=2,048): 7.87e11 FLOP over 989 TFLOP/s bf16 = 0.7957 ms against 0.27 ms
+of bytes, so the tensor cores bound them; K4 per 1M-corpus chunk
+(B=2,048, R=500,096): 4.24 ms against 0.46 ms of bytes. A thread block
+owns one (128 x 128) output tile, takes the block maxima or top-m inside
+the block (no second pass over the (B, R) matrix), and blocks are ordered
+so that each head tile stays in L2 while every query tile reads it.
+Details at the top of the source.
 
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
@@ -56,7 +57,7 @@ from osr_tpu_torch.ops.topk import block_max, block_topm
 
 ROW_TILE = 128  # the kernels' head-row tile: one 128-row pruning block
 COL_ALIGN = 16  # the kernels' head-width alignment, in bytes
-PTR_ALIGN = 16  # TMA's (and K1's vector loads') head alignment, in bytes
+PTR_ALIGN = 16  # TMA's head alignment, in bytes
 BLOCKTOPM_MAX_M = 16  # K4's largest m (csrc/head_wgmma.cu: kMaxM)
 I8_STAGE = 128  # int8 head columns per stage of csrc/head_wgmma.cu's ring
 
@@ -185,9 +186,9 @@ def _check_operands(head, head_scales, qhead, valid):
         )
     if not head.is_contiguous():
         raise ValueError("head must be contiguous")
-    # The kernels load the head through TMA (K2-K4) or 16-byte vector loads
-    # (K1), which take a 16-byte aligned base; a row-chunk view of a head
-    # whose width is a multiple of 16 is aligned. Raise rather than copy.
+    # The kernels load the head through TMA, which takes a 16-byte aligned
+    # base; a row-chunk view of a head whose width is a multiple of 16 is
+    # aligned. Raise rather than copy.
     if head.data_ptr() % PTR_ALIGN:
         raise ValueError(
             f"head starts at an address that is not a multiple of "
@@ -280,7 +281,8 @@ def masked_head_scores(
     qhead: torch.Tensor,  # (B, F) f32 query weights
     valid: torch.Tensor,  # (R,) bool
 ) -> torch.Tensor:
-    """(B, R) f32 masked head scores of an int8 head (K1 on CUDA).
+    """(B, R) f32 masked head scores of an int8 head (K1 on CUDA; bit for
+    bit the scores of :func:`masked_head_scores_blockmax` there).
 
     int8 only, like ``osr_tpu``'s ``masked_head_scores``: an int4 head
     goes through :func:`masked_head_scores_blockmax`."""
@@ -295,15 +297,15 @@ def masked_head_scores(
         raise ValueError(f"no kernel for device {head.device}")
     _check_operands(head, head_scales, qhead, valid)
     with torch.cuda.device(head.device):
-        q = scaled_query(qhead, head_scales, head.shape[1])
+        q = _kernel_query(qhead, head_scales, head)
         out = torch.empty(
             (q.shape[0], head.shape[0]), dtype=torch.float32,
             device=head.device,
         )
         _launch(
-            "head", "osr_head_scores", "head_scores_i8", head.device,
-            q.data_ptr(), head.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            q.shape[0], head.shape[0], head.shape[1],
+            "head_wgmma", "osr_head_i8_scores", "head_scores_i8",
+            head.device, q.data_ptr(), head.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), q.shape[0], head.shape[0], head.shape[1],
         )
     return out
 

@@ -13,13 +13,24 @@ Wrappers, each with its plain version beside it:
 - :func:`int4_similarity` launches K6. Replaces ``_kernel_i4`` (via
   ``int4_similarity_pallas``).
 
-One templated CUDA kernel (``csrc/matmul.cu``) serves both. At the dense
-path's shape (B=1,024, N=1,000,000, D=768) on an H100 it is bound by
-bytes: the (B, N) f32 output alone is 4.10 GB, 1.22 ms of the 1.45 ms
-(int8) or 1.34 ms (int4) bound, against 0.79 ms of int8 tensor-core work.
-Design notes at the top of ``csrc/matmul.cu``. The kernel takes every
-width D for int8 and every even D for int4, and masks ragged B, N and D
-itself, so callers pad nothing.
+Two CUDA sources. At the dense path's shape (B=1,024, N=1,000,000, D=768)
+on an H100 both kernels are bound by bytes: the (B, N) f32 output alone is
+4.10 GB, 1.22 ms of the 1.45 ms (int8) or 1.34 ms (int4) bound, against
+0.79 ms of int8 tensor-core work.
+
+- K5 (``csrc/matmul.cu``): int8 ``mma.sync`` on (128 x 128) tiles staged
+  through registers; it takes every width D and masks ragged B, N and D
+  itself.
+- K6 (``csrc/similarity_wgmma.cu``): one persistent block per SM walks the
+  output tiles; a TMA ring feeds integer ``wgmma`` (the corpus nibbles
+  decoded into its register operand), and each tile leaves through a
+  shared staging tile and a TMA store that overlaps the next tile's main
+  loop. TMA needs 16-byte row strides, so :func:`int4_kernel_operands`
+  zero-pads a corpus whose packed width D/2 is not a multiple of 16 and
+  places the query's high half at the padded offset: a per-call copy,
+  counted in ``PAD_COPIES``. Every even D is taken, as before.
+
+Design notes at the top of each source.
 
 The plain versions compute the integer products in float64, exact while
 the sums stay below 2^53 (PyTorch has no integer matrix product on CUDA).
@@ -38,11 +49,17 @@ LAUNCHES: Dict[str, int] = {
     "int8_similarity": 0,  # K5
     "int4_similarity": 0,  # K6
 }
+# Operand copies K6's wrapper made (int4_kernel_operands): the padded
+# corpus, and the query with its high half placed at the padded offset.
+PAD_COPIES: Dict[str, int] = {"corpus": 0, "query": 0}
+PACKED_ALIGN = 16  # K6's packed-width and base alignment (TMA), in bytes
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set the launch counts and K6's operand-copy counts to 0."""
+    for counts in (LAUNCHES, PAD_COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ----------------------------------------------------------------------
@@ -120,6 +137,32 @@ def _check_operands(q8, docs, q_scales, d_scales, int4: bool) -> None:
         raise ValueError("kernel dimensions must fit int32")
 
 
+def int4_kernel_operands(q8: torch.Tensor, d_packed: torch.Tensor):
+    """K6's operands: ((B, 2 HP) int8 queries, (N, HP) uint8 corpus, HP),
+    HP the packed width D/2 rounded up to ``PACKED_ALIGN``.
+
+    The corpus is zero-padded to HP bytes a row (a zero byte decodes to
+    two 0 codes), and the queries' columns [D/2, D) move to [HP, HP + D/2)
+    to meet the padded corpus's high nibbles, zeros elsewhere; so the
+    integer sums are unchanged. At HP = D/2 with 16-byte aligned bases the
+    operands are the inputs themselves; otherwise each copy is counted in
+    ``PAD_COPIES``."""
+    h = d_packed.shape[1]
+    hp = -(-h // PACKED_ALIGN) * PACKED_ALIGN
+    if hp != h or d_packed.data_ptr() % PACKED_ALIGN:
+        padded = d_packed.new_zeros((d_packed.shape[0], hp))
+        padded[:, :h] = d_packed
+        d_packed = padded
+        PAD_COPIES["corpus"] += 1
+    if hp != h or q8.data_ptr() % PACKED_ALIGN:
+        placed = q8.new_zeros((q8.shape[0], 2 * hp))
+        placed[:, :h] = q8[:, :h]
+        placed[:, hp : hp + h] = q8[:, h:]
+        q8 = placed
+        PAD_COPIES["query"] += 1
+    return q8, d_packed, hp
+
+
 def _similarity(q8, docs, q_scales, d_scales, int4: bool) -> torch.Tensor:
     name = "int4_similarity" if int4 else "int8_similarity"
     if q8.device.type == "cpu":
@@ -135,19 +178,20 @@ def _similarity(q8, docs, q_scales, d_scales, int4: bool) -> torch.Tensor:
         return out
     from osr_tpu_torch.ops import _build
 
-    lib = _build.library("matmul")
     with torch.cuda.device(q8.device):
-        code = lib.osr_similarity(
-            q8.data_ptr(),
-            docs.data_ptr(),
-            q_scales.data_ptr(),
-            d_scales.data_ptr(),
-            out.data_ptr(),
-            q8.shape[0],
-            docs.shape[0],
-            q8.shape[1],
-            int(int4),
-            torch.cuda.current_stream(q8.device).cuda_stream,
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        if int4:
+            q, d, width = int4_kernel_operands(q8, docs)
+            lib = _build.library("similarity_wgmma")
+            entry = lib.osr_similarity_i4
+        else:
+            q, d, width = q8, docs, q8.shape[1]
+            lib = _build.library("matmul")
+            entry = lib.osr_similarity
+        code = entry(
+            q.data_ptr(), d.data_ptr(), q_scales.data_ptr(),
+            d_scales.data_ptr(), out.data_ptr(), q8.shape[0], docs.shape[0],
+            width, stream,
         )
         _build.check(lib, code, name)
     LAUNCHES[name] += 1

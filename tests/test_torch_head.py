@@ -289,6 +289,19 @@ KERNEL_CASES = [
     ("head_blockmax_i4", 257, 1031, 96, 150),
     ("head_blockmax_i4", 1, 1031, 1024, 2048),
     ("head_blockmax_i4", 130, 127, 1024, 1500),
+    # K1 shares the int8 kernel's ring: the same edges.
+    ("head_scores_i8", 1, 1, 16, 16),
+    ("head_scores_i8", 64, 127, 16, 10),
+    ("head_scores_i8", 130, 129, 48, 48),
+    ("head_scores_i8", 257, 1031, 48, 37),
+    ("head_scores_i8", 1, 129, 64, 64),
+    ("head_scores_i8", 64, 1031, 112, 100),
+    ("head_scores_i8", 257, 127, 112, 112),
+    ("head_scores_i8", 130, 1, 128, 128),
+    ("head_scores_i8", 64, 129, 128, 97),
+    ("head_scores_i8", 257, 1031, 144, 144),
+    ("head_scores_i8", 1, 1031, 2048, 2048),
+    ("head_scores_i8", 130, 127, 2048, 1500),
 ]
 
 
@@ -327,6 +340,24 @@ def test_kernel_matches_plain_on_card(cuda, kernel, b, r, width, f):
     )
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,r,width,f",
+    [(130, 300, 160, 160), (1, 129, 64, 64), (257, 1031, 48, 37),
+     (130, 127, 2048, 1500), (257, 1031, 2048, 2048)],
+)
+def test_k1_scores_equal_k2_scores_on_card(cuda, b, r, width, f):
+    """K1 is the scores-only epilogue of K2's kernel: on the same operands
+    its (B, R) scores are K2's bit for bit."""
+    head, scales, qhead, valid, _ = _int8_case(9, b, r, f, width)
+    args = _t(head, scales, qhead, _invalidate_last_block(valid),
+              device=cuda)
+    got = thead.masked_head_scores(*args)
+    want, _ = thead.masked_head_scores_blockmax(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
 def test_check_aligned_refuses_misaligned_view(dtype):
     """TMA takes 16-byte aligned bases: the wrappers raise on a head view
@@ -359,9 +390,8 @@ def test_head_libraries_refuse_bad_shapes(cuda):
     rows = torch.zeros(4, 1, 17, dtype=torch.int32, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (q.data_ptr(), head.data_ptr(), valid.data_ptr())
-    k1 = _build.library("head")
     wg = _build.library("head_wgmma")
-    assert k1.osr_head_scores(*ptrs, out.data_ptr(), 4, 64, 24, stream) == 1
+    assert wg.osr_head_i8_scores(*ptrs, out.data_ptr(), 4, 64, 24, stream) == 1
     assert wg.osr_head_i8_blockmax(
         *ptrs, out.data_ptr(), bmax.data_ptr(), 4, 64, 24, stream
     ) == 1

@@ -277,11 +277,14 @@ def test_plain_int8_similarity_matches_pallas_interpret(jax_ref, embeddings):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
 
 
-def test_plain_int4_similarity_matches_pallas_interpret(jax_ref):
+@pytest.mark.parametrize("n,b,d", [(256, 128, 256), (384, 37, 512)])
+def test_plain_int4_similarity_matches_pallas_interpret(jax_ref, n, b, d):
+    """K6's plain version against int4_similarity_pallas (whose packed
+    width must be a multiple of 128), B off the 128 tile too."""
     jnp, jqz, jpmm, _ = jax_ref
     rng = np.random.default_rng(7)
-    docs = rng.standard_normal((256, 256)).astype(np.float32)
-    queries = rng.standard_normal((128, 256)).astype(np.float32)
+    docs = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((b, d)).astype(np.float32)
     packed, ds = jqz.quantize_symmetric_int4(jnp.asarray(docs))
     q8, qs = jqz.quantize_symmetric(jnp.asarray(queries))
     want = jpmm.int4_similarity_pallas(q8, packed, qs, ds, interpret=True)
@@ -289,6 +292,94 @@ def test_plain_int4_similarity_matches_pallas_interpret(jax_ref):
         *_t(np.asarray(q8), np.asarray(packed), np.asarray(qs), np.asarray(ds))
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL)
+
+
+# ----------------------------------------------------------------------
+# K6's operands and decode (csrc/similarity_wgmma.cu), emulated here
+# ----------------------------------------------------------------------
+
+
+def _nibbles_to_s8(x):
+    """csrc/similarity_wgmma.cu:nibbles_to_s8 on uint32 words: the signed
+    codes of the low and of the high nibbles, byte for byte."""
+    x = x.astype(np.uint32)
+    h = x >> np.uint32(4)
+    lo = (x & np.uint32(0x0F0F0F0F)) | (
+        (x & np.uint32(0x08080808)) * np.uint32(0x1E)
+    )
+    hi = (h & np.uint32(0x0F0F0F0F)) | (
+        (h & np.uint32(0x08080808)) * np.uint32(0x1E)
+    )
+    return lo, hi
+
+
+def test_k6_decode_is_exact_for_every_byte():
+    """Both nibbles of all 256 bytes decode to ((v & 0xF) ^ 8) - 8."""
+    words = np.arange(256, dtype=np.uint8).view("<u4")
+    lo, hi = _nibbles_to_s8(words)
+    v = np.arange(256)
+    np.testing.assert_array_equal(
+        lo.view(np.int8), ((v & 0xF) ^ 8) - 8
+    )
+    np.testing.assert_array_equal(hi.view(np.int8), ((v >> 4) ^ 8) - 8)
+
+
+def _k6_emulated(q8, d_packed, qs, ds):
+    """csrc/similarity_wgmma.cu on int4_kernel_operands's operands: stage
+    k takes corpus bytes [64 k, 64 k + 64) and query columns [64 k, 64 k +
+    64) and [HP + 64 k, HP + 64 k + 64), each zero past its operand's width
+    (TMA's fill); 32-bit words of 4 corpus bytes decode as the kernel does
+    (their bytes in the A slots' order); the sums are exact; then (float(
+    acc) * qs) * ds in f32."""
+    q, d, hp = tmm.int4_kernel_operands(q8, d_packed)
+    q, d = q.numpy().astype(np.int64), d.numpy()
+    assert d.shape[1] == hp and q.shape[1] == 2 * hp
+    assert hp % tmm.PACKED_ALIGN == 0
+    stages = -(-hp // 64)
+    qz = np.zeros((q.shape[0], 2 * hp + 64), np.int64)
+    qz[:, : 2 * hp] = q
+    dz = np.zeros((d.shape[0], 64 * stages), np.uint8)
+    dz[:, :hp] = d
+    acc = np.zeros((q.shape[0], d.shape[0]), np.int64)
+    for k in range(stages):
+        words = np.ascontiguousarray(dz[:, 64 * k : 64 * k + 64]).view("<u4")
+        lo, hi = (w.view(np.int8).astype(np.int64) for w in _nibbles_to_s8(words))
+        acc += qz[:, 64 * k : 64 * k + 64] @ lo.T
+        acc += qz[:, hp + 64 * k : hp + 64 * k + 64] @ hi.T
+    out = acc.astype(np.float32) * qs.numpy()[:, None]
+    return out * ds.numpy()[None, :]
+
+
+@pytest.mark.parametrize("half", [16, 24, 48, 64, 100, 128, 200, 384, 388])
+def test_k6_operands_give_plain_result(half):
+    """The padded corpus and the placed query, read stage by stage as the
+    kernel reads them, give int4_similarity_plain's exact result; a copy
+    is made (and counted) only for a packed width off 16 bytes."""
+    rng = np.random.RandomState(half)
+    b, n = 5, 7
+    q8, docs = _t(
+        rng.randint(-128, 128, (b, 2 * half)).astype(np.int8),
+        rng.randint(0, 256, (n, half)).astype(np.uint8),
+    )
+    qs, ds = _t((rng.rand(b) / 127).astype(np.float32),
+                (rng.rand(n) / 7).astype(np.float32))
+    before = dict(tmm.PAD_COPIES)
+    got = _k6_emulated(q8, docs, qs, ds)
+    copied = int(half % tmm.PACKED_ALIGN != 0)
+    assert tmm.PAD_COPIES == {k: v + copied for k, v in before.items()}
+    want = tmm.int4_similarity_plain(q8, docs, qs, ds).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k6_operands_are_the_inputs_when_aligned():
+    q8 = torch.zeros(3, 64, dtype=torch.int8)
+    docs = torch.zeros(4, 32, dtype=torch.uint8)
+    q, d, hp = tmm.int4_kernel_operands(q8, docs)
+    assert hp == 32 and q is q8 and d is docs
+    # A view that starts off 16 bytes is copied, not refused.
+    flat = torch.zeros(8 + docs.numel(), dtype=torch.uint8)
+    _, d, _ = tmm.int4_kernel_operands(q8, flat[8:].view(4, 32))
+    assert d.data_ptr() % 16 == 0 and d.shape == (4, 32)
 
 
 def test_stochastic_quantize_unbiased(embeddings):
@@ -525,7 +616,8 @@ def test_quantize_operand_checks_refuse():
 # ----------------------------------------------------------------------
 
 # (B, N, D): ragged against the 128 x 128 tiles, 128-column chunks and
-# 16-byte loads (776 % 16 = 8 and 388 % 16 = 4 take the byte-load path).
+# 16-byte loads (776 % 16 = 8 takes K5's byte-load path; K6's packed width
+# 388 is padded to 400), N = 129 off 4 (K6's plain stores).
 RAGGED = [(37, 1_000, 776), (130, 300, 768), (1, 129, 32)]
 
 
@@ -553,6 +645,64 @@ def test_similarity_kernel_matches_plain_on_card(cuda, int4, b, n, d):
     torch.cuda.synchronize()
     assert tmm.LAUNCHES[name] == before + 1
     assert torch.equal(got, want)
+
+
+# K6 (csrc/similarity_wgmma.cu) at its edges, (B, N, D): a stage takes 64
+# packed bytes (D/2 below, at and off a stage; off 16 bytes the wrapper
+# pads), B and N off the 128 tiles, N off 4 (plain stores), N and B large
+# enough that each persistent block walks several tiles, and widths of 9
+# to 32 stages.
+K6_EDGES = [
+    (1, 1, 32), (64, 127, 48), (130, 129, 96), (257, 1_031, 128),
+    (1, 129, 200), (130, 1, 256), (64, 1_031, 400), (257, 127, 776),
+    (37, 300, 1_024), (130, 34_000, 768), (257, 33_795, 200),
+    (17_000, 200, 64), (37, 300, 1_040), (130, 1_031, 2_048),
+    (64, 34_000, 1_536),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", K6_EDGES)
+def test_int4_similarity_edges_on_card(cuda, b, n, d):
+    rng = np.random.RandomState(b * n + d)
+    q8 = _codes(rng, (b, d), False)
+    docs = _codes(rng, (n, d // 2), True)
+    qs = (rng.rand(b) / 127).astype(np.float32)
+    ds = (rng.rand(n) / 7).astype(np.float32)
+    args = _t(q8, docs, qs, ds, device=cuda)
+    before = tmm.LAUNCHES["int4_similarity"]
+    copies = dict(tmm.PAD_COPIES)
+    got = tmm.int4_similarity(*args)
+    want = tmm.int4_similarity_plain(*args)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES["int4_similarity"] == before + 1
+    padded = int((d // 2) % tmm.PACKED_ALIGN != 0)
+    assert tmm.PAD_COPIES == {k: v + padded for k, v in copies.items()}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_similarity_wgmma_refuses_bad_operands(cuda):
+    """osr_similarity_i4 returns cudaErrorInvalidValue (1) and launches
+    nothing for a packed width off 16 bytes or a base off 16 bytes."""
+    from osr_tpu_torch.ops import _build
+
+    lib = _build.library("similarity_wgmma")
+    q = torch.zeros(4, 80, dtype=torch.int8, device=cuda)
+    d = torch.ones(8, 40, dtype=torch.uint8, device=cuda)
+    qs = torch.ones(4, device=cuda)
+    ds = torch.ones(8, device=cuda)
+    out = torch.zeros(4, 8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (qs.data_ptr(), ds.data_ptr(), out.data_ptr())
+    assert lib.osr_similarity_i4(
+        q.data_ptr(), d.data_ptr(), *ptrs, 4, 8, 40, stream
+    ) == 1
+    assert lib.osr_similarity_i4(
+        q.data_ptr(), d.data_ptr() + 8, *ptrs, 4, 8, 32, stream
+    ) == 1
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out) == 0
 
 
 @pytest.mark.cuda
