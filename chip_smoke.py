@@ -5,13 +5,13 @@ recorded in PERF.md).
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. build the hand-written kernels (osr_tpu_torch/csrc: head_wgmma.cu,
-   similarity_wgmma.cu, matmul.cu, quantize.cu) with nvcc, one process
-   per source, all at once; print each kernel's registers and shared
-   memory (ptxas, plus the dynamic shared memory of the TMA kernels),
-   failing if ptxas serialized a wgmma pipeline; check that the SASS of
-   head_wgmma.cu's five kernels (K1, K2, K4-i8, K3, K4-i4) holds HGMMA and
-   UTMALDG (wgmma and TMA loads) and that of similarity_wgmma.cu's K6
-   IGMMA (integer wgmma), UTMALDG and UTMASTG (TMA stores);
+   similarity_wgmma.cu, quantize.cu) with nvcc, one process per source,
+   all at once; print each kernel's registers and shared memory (ptxas,
+   plus the dynamic shared memory of the TMA kernels), failing if ptxas
+   serialized a wgmma pipeline; check that the SASS of head_wgmma.cu's
+   five kernels (K1, K2, K4-i8, K3, K4-i4) holds HGMMA and UTMALDG (wgmma
+   and TMA loads) and that of similarity_wgmma.cu's K5 and K6 IGMMA
+   (integer wgmma), UTMALDG and UTMASTG (TMA stores);
 2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
    a ragged small shape and at the FiQA bench shape (the main path's own
    inputs), with the tolerance of tests/test_torch_head.py, K1's scores
@@ -25,9 +25,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    within the K1-K3 bound on random ones; hold K4 against the stable
    per-block top-8 of K2's (K3's) own scores at the path shapes, bit for
    bit; hold K5, K6, K7 (both roundings) and K8 against theirs at a
-   ragged shape (B=37, N=1,000, D=776), where the error must be 0, and K6
-   at the edges of its stages and tiles (packed widths off 16 bytes, which
-   its wrapper pads, N off 4, several tiles per persistent block);
+   ragged shape (B=37, N=1,000, D=776), where the error must be 0, and K5
+   and K6 at the edges of their stages and tiles (widths off 16 bytes,
+   which their wrappers pad, N off 4, several tiles per persistent block);
 3. drive the sparse main path: the bench.py FiQA-scale corpus (57,638
    docs, 100k-term vocabulary) and its 6,648 queries through
    SparseSearchEngine(device="cuda", batch_sizes=(3328,)) at top_k=50 (K2),
@@ -56,10 +56,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
    1,024 at top_k=50, launches counted; the corpus codes equal the plain
-   quantizer's; K6's wrapper made no operand copy; 256 queries give the
-   backend='torch' engine's ids and bit-equal scores; the self-hit rate;
-   each kernel against its plain version at the path's shapes (error 0)
-   with its times; the dense device
+   quantizer's; K5's and K6's wrappers made no operand copy; 256 queries
+   give the backend='torch' engine's ids and bit-equal scores; the
+   self-hit rate; each kernel against its plain version at the path's
+   shapes (error 0) with its times; the dense device
    step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
 8. drive the quantization round trip (quantize, dequantize; deterministic
    and stochastic, as benchmarks/suites.py's quantization suite does) on
@@ -125,8 +125,7 @@ SOURCES = {
     "head_wgmma.cu": ("head_scores_i8", "head_blockmax_i8",
                       "head_blocktopm_i8", "head_blockmax_i4",
                       "head_blocktopm_i4"),
-    "similarity_wgmma.cu": ("int4_similarity",),
-    "matmul.cu": ("int8_similarity",),
+    "similarity_wgmma.cu": ("int8_similarity", "int4_similarity"),
     "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
                     "dequantize_symmetric"),
 }
@@ -139,8 +138,8 @@ MANGLED = {
     "head_wgmma_kernelILb1ELi1E": "head_blocktopm_i8",
     "head_wgmma_kernelILb0ELi0E": "head_blockmax_i4",
     "head_wgmma_kernelILb0ELi1E": "head_blocktopm_i4",
-    "similarity_kernelILb1E": "int8_similarity",
-    "similarity_wgmma_kernelILb1E": "int4_similarity",
+    "similarity_wgmma_kernelILb0ELb1E": "int8_similarity",
+    "similarity_wgmma_kernelILb1ELb1E": "int4_similarity",
     "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
     "quantize_rows_kernelILb1ELb1E": "quantize_symmetric_stochastic",
     "dequantize_rows_kernelILb1E": "dequantize_symmetric",
@@ -206,9 +205,11 @@ def kernel_resources():
     lib = _build.library("head_wgmma")
     for name in SOURCES["head_wgmma.cu"]:
         smem[name] += lib.osr_head_wgmma_smem_bytes(name.endswith("i8"))
-    smem["int4_similarity"] += _build.library(
-        "similarity_wgmma"
-    ).osr_similarity_wgmma_smem_bytes()
+    lib = _build.library("similarity_wgmma")
+    for name in SOURCES["similarity_wgmma.cu"]:
+        smem[name] += lib.osr_similarity_wgmma_smem_bytes(
+            name.startswith("int4")
+        )
     return regs, smem
 
 
@@ -1166,7 +1167,8 @@ def dense_numbers(name, args, plain_reps=3):
 def dense_small_checks(dev):
     """K5, K6, K7 (both roundings) and K8 against their plain versions at
     ragged shapes off every tile: B=37, N=1,000, D=776 (776 % 16 = 8 and
-    388 % 16 = 4 take the byte-load paths); error 0."""
+    388 % 16 = 4: K5's and K6's wrappers pad); error 0. Then K5's and K6's
+    edges."""
     rng = np.random.RandomState(9)
     b, n, d = 37, 1_000, 776
     q8 = torch.from_numpy(rng.randint(-128, 128, (b, d)).astype(np.int8))
@@ -1192,14 +1194,24 @@ def dense_small_checks(dev):
         err = exact(name, kernel(), plain())
         log(f"small ragged check {name}: B/N={b}/{n} D={d} "
             f"max_abs_err={err:.3e}")
-    k6_edge_checks(dev)
+    similarity_edge_checks(dev, int4=False)
+    similarity_edge_checks(dev, int4=True)
 
 
-# K6's edges (B, N, D), as tests/test_torch_quantize.py:K6_EDGES: packed
-# widths D/2 below, at and off a 64-byte stage and off 16 bytes (padded by
-# the wrapper), B and N off the 128 tiles, N off 4 (plain stores), N and B
+# K5's edges (B, N, D), as tests/test_torch_quantize.py:K5_EDGES: widths
+# below, at and off a 128-byte stage and off 16 bytes (padded by the
+# wrapper), B and N off the 128 tiles, N off 4 (plain stores), N and B
 # large enough that each persistent block walks several tiles, and widths
-# of 9 to 32 stages.
+# of 1 to 16 stages.
+K5_EDGES = (
+    (5, 3, 1), (1, 1, 16), (64, 127, 24), (130, 129, 128), (1, 129, 100),
+    (257, 1_031, 200), (130, 1, 256), (64, 1_031, 776), (257, 127, 768),
+    (37, 300, 1_024), (130, 34_000, 768), (257, 33_795, 200),
+    (17_000, 200, 64), (37, 300, 1_040), (130, 1_031, 2_048),
+)
+# K6's edges, as tests/test_torch_quantize.py:K6_EDGES: packed widths D/2
+# below, at and off a 64-byte stage and off 16 bytes, B, N and the walks as
+# above, and widths of 9 to 32 stages.
 K6_EDGES = (
     (1, 1, 32), (64, 127, 48), (130, 129, 96), (257, 1_031, 128),
     (1, 129, 200), (130, 1, 256), (64, 1_031, 400), (257, 127, 776),
@@ -1209,28 +1221,34 @@ K6_EDGES = (
 )
 
 
-def k6_edge_checks(dev):
-    """K6 against its plain version at K6_EDGES, error 0; the wrapper pads
-    (one corpus and one query copy) exactly where D/2 is off 16 bytes."""
+def similarity_edge_checks(dev, int4):
+    """K6 (int4) or K5 against its plain version at its edges, error 0;
+    the wrapper pads (one corpus and one query copy) exactly where the
+    corpus row (D/2 packed bytes, or D) is off 16 bytes."""
     from osr_tpu_torch.ops import matmul as M
 
-    for b, n, d in K6_EDGES:
+    name = "int4_similarity" if int4 else "int8_similarity"
+    kernel, plain = (
+        (M.int4_similarity, M.int4_similarity_plain) if int4
+        else (M.int8_similarity, M.int8_similarity_plain)
+    )
+    for b, n, d in K6_EDGES if int4 else K5_EDGES:
         rng = np.random.RandomState(b * n + d)
+        q8 = rng.randint(-128, 128, (b, d)).astype(np.int8)
+        docs = (rng.randint(0, 256, (n, d // 2)).astype(np.uint8) if int4
+                else rng.randint(-128, 128, (n, d)).astype(np.int8))
         args = tuple(torch.from_numpy(a).to(dev) for a in (
-            rng.randint(-128, 128, (b, d)).astype(np.int8),
-            rng.randint(0, 256, (n, d // 2)).astype(np.uint8),
-            (rng.rand(b) / 127).astype(np.float32),
+            q8, docs, (rng.rand(b) / 127).astype(np.float32),
             (rng.rand(n) / 7).astype(np.float32),
         ))
         before = dict(M.PAD_COPIES)
-        err = exact("int4_similarity", M.int4_similarity(*args),
-                    M.int4_similarity_plain(*args))
-        padded = int((d // 2) % M.PACKED_ALIGN != 0)
+        err = exact(name, kernel(*args), plain(*args))
+        padded = int(docs.shape[1] % M.TMA_ALIGN != 0)
         if M.PAD_COPIES != {k: v + padded for k, v in before.items()}:
-            fail(f"K6 at D={d}: operand copies {M.PAD_COPIES}, before "
+            fail(f"{name} at D={d}: operand copies {M.PAD_COPIES}, before "
                  f"{before}")
-        log(f"K6 edge B={b} N={n} D={d}: max_abs_err={err:.3e}, operand "
-            f"copies {padded}")
+        log(f"{name} edge B={b} N={n} D={d}: max_abs_err={err:.3e}, "
+            f"operand copies {padded}")
 
 
 def device_corpus(n, dim, seed, dev):
@@ -1299,10 +1317,10 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
     label = f"dense {quantization} {len(doc_ids):,} x {DENSE_DIM}"
     log(f"{label}: engine built in {build_s:.2f} s (backend {eng.backend}); "
         f"{len(queries)} queries in {secs:.2f} s; launches "
-        f"{ {k: v for k, v in counts.items() if v} }; K6 operand copies "
+        f"{ {k: v for k, v in counts.items() if v} }; K5/K6 operand copies "
         f"{copies}")
     if any(copies.values()):
-        fail(f"{label}: K6's wrapper copied operands ({copies})")
+        fail(f"{label}: the {sim} wrapper copied operands ({copies})")
     if eng.backend != "cuda":
         fail(f"{label}: the engine does not take the CUDA kernels")
     for k in ("quantize_symmetric", sim):
@@ -1492,8 +1510,7 @@ def main():
     regs, smem = kernel_resources()
     log(f"registers per thread (ptxas): {regs}")
     log(f"shared memory per block, bytes (ptxas static + dynamic): {smem}")
-    log(f"head_wgmma.cu kernels' SASS, HGMMA and UTMALDG counts: "
-        f"{check_sass()}")
+    log(f"TMA + wgmma kernels' SASS instruction counts: {check_sass()}")
     log(f"host runtime: native={native.available()}")
 
     for name in HEAD_KERNELS:

@@ -128,16 +128,6 @@ struct Geometry {
 
 // ---- wgmma ----------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a K-major tile with 128B swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); the leading
-// byte offset is unused for this layout. A k-step of 16 bf16 (32 bytes)
-// inside the 128-byte row adds 2 to the address field.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
-
 // d (64 x 128, f32, this thread's 64 values) = a (64 x 16, this thread's
 // fragment in registers) * b (16 x 128, shared memory) + (accumulate ? d :
 // 0).

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (head_wgmma.cu, similarity_wgmma.cu): mbarriers, TMA loads and stores,
-// the wgmma fences, and host-side tensor-map encoding. Each including
-// source gets its own copy (an anonymous namespace); ops/_build.py hashes
-// this header into every library's name, so an edit rebuilds them all.
+// shared-memory matrix descriptors, the wgmma fences, and host-side
+// tensor-map encoding. Each including source gets its own copy (an
+// anonymous namespace); ops/_build.py hashes this header into every
+// library's name, so an edit rebuilds them all.
 
 #pragma once
 
@@ -127,6 +128,23 @@ __device__ __forceinline__ void keep_live(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
+// Shared-memory matrix descriptors of K-major tiles, as TMA writes them:
+// rows of 128 bytes with 128B swizzle (8-row groups 1024 bytes apart, the
+// SBO) or of 64 bytes with 64B swizzle (groups 512 bytes apart); the
+// leading byte offset is unused for these layouts. A k-step of 32 bytes
+// (16 bf16, 32 int8) inside a row adds 2 to the address field.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{512 >> 4} << 32) | (uint64_t{2} << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -167,16 +185,17 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 2-D row-major tensor map: cols x rows elements of elem_bytes, a box of
-// box_cols x 128 rows.
+// box_cols x box_rows.
 bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                const void* base, int cols, int rows, int box_cols,
-               CUtensorMapSwizzle swizzle) {
+               CUtensorMapSwizzle swizzle, int box_rows = 128) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), 128};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

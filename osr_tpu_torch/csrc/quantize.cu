@@ -23,21 +23,35 @@
 // Design. Both kernels are bound by bytes: at 1M x 768 the quantizer reads
 // 3.07 GB and writes 0.77 GB, 1.15 ms at 3.35 TB/s, and the dequantizer
 // moves the same bytes the other way; the arithmetic is a few operations per
-// element. The quantizer gives each row to one warp: a first pass reduces
-// |x| with float4 loads and warp shuffles, a second pass re-reads the row
-// (a 3 KB row is still in L1/L2) and writes four codes per lane and
-// iteration. The dequantizer is a grid-stride loop over 16 codes per thread
-// (one 16-byte load, four 16-byte stores). Rows whose width or address does
-// not allow vector access take a scalar loop of the same arithmetic.
+// element. Both give each row to one warp, so a row's scale is one value.
+// - The quantizer: a first pass reduces |x| with float4 loads and warp
+//   shuffles, a second pass re-reads the row (a 3 KB row is still in L1/L2)
+//   and writes four codes per lane and iteration.
+// - The dequantizer (rebuilt for its 3.07 GB of stores): one wave of blocks
+//   over the SMs, each warp walking rows with a stride of the grid's warp
+//   count (no division). Lane l converts the 4 codes of word l + 32 i: one
+//   32-bit load and one f32 x 4 store, so each warp store instruction writes
+//   512 contiguous bytes (a lane-per-16-codes walk spreads one instruction
+//   over 2 KB at a 64-byte stride). A lane loads up to 8 words (a whole
+//   768-code row) before its first store, and the stores are streaming
+//   (written once, never re-read).
+// Rows whose width or address does not allow vector access take a scalar
+// loop of the same arithmetic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// K8's stores carry the streaming hint (st.global.cs) unless this is 0.
+#ifndef OSR_K8_STREAM_STORES
+#define OSR_K8_STREAM_STORES 1
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;  // one warp per row
 constexpr float kEps = 1e-8f;
+constexpr int kDequantUnroll = 8;  // words a K8 lane loads before storing
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -119,42 +133,95 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Stores one f32 x 4 of K8's output, which is written once and never read
+// again: with the streaming hint (st.global.cs) unless
+// OSR_K8_STREAM_STORES is 0.
+__device__ __forceinline__ void store_out(float4* p, float4 v) {
+#if OSR_K8_STREAM_STORES
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// Code j (byte j, little-endian) of a word of 4 codes, as f32.
+__device__ __forceinline__ float code_of(uint32_t w, int j) {
+  return static_cast<float>(static_cast<int32_t>(w << (24 - 8 * j)) >> 24);
+}
+
 // values: (N, D) int8; scales: (N,) f32; out: (N, D) f32.
-// kVec: D % 16 == 0, values and out 16-byte aligned.
+// Warp v of the grid's V warps takes rows v, v + V, v + 2 V, ...: it knows
+// its row without a division and loads the row's scale once.
+// kVec (D % 4 == 0, values 4-byte and out 16-byte aligned): lane l takes
+// words l + 32 i of the row, codes 4 (l + 32 i) .. + 3, one 32-bit load and
+// one f32 x 4 store each, so that a warp's store instruction writes 512
+// contiguous bytes; it loads kDequantUnroll words before it stores any
+// (the row's tail guarded). Otherwise lane l takes columns l + 32 i one by
+// one.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
     dequantize_rows_kernel(const int8_t* __restrict__ values,
                            const float* __restrict__ scales,
-                           float* __restrict__ out, long long N, int D) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (kVec) {
-    const long long n16 = N * D / 16;
-    for (; i < n16; i += stride) {
-      const long long e = i * 16;
-      const float s = scales[e / D];
-      const int4 raw = reinterpret_cast<const int4*>(values)[i];
-      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-      float4* o = reinterpret_cast<float4*>(out + e);
+                           float* __restrict__ out, int N, int D) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * kRowsPerBlock;
+  for (long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock +
+                       (threadIdx.x >> 5);
+       row < N; row += warps) {
+    const float s = scales[row];
+    const long long base = row * D;
+    if (kVec) {
+      const int words = D >> 2;
+      const uint32_t* vr = reinterpret_cast<const uint32_t*>(values + base);
+      float4* orow = reinterpret_cast<float4*>(out + base);
+      for (int i0 = lane; i0 < words; i0 += 32 * kDequantUnroll) {
+        uint32_t w[kDequantUnroll];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        o[j] = make_float4(__fmul_rn(static_cast<float>(b[4 * j]), s),
-                           __fmul_rn(static_cast<float>(b[4 * j + 1]), s),
-                           __fmul_rn(static_cast<float>(b[4 * j + 2]), s),
-                           __fmul_rn(static_cast<float>(b[4 * j + 3]), s));
+        for (int u = 0; u < kDequantUnroll; ++u) {
+          const int i = i0 + 32 * u;
+          w[u] = i < words ? __ldg(vr + i) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kDequantUnroll; ++u) {
+          const int i = i0 + 32 * u;
+          if (i < words) {
+            store_out(orow + i, make_float4(__fmul_rn(code_of(w[u], 0), s),
+                                            __fmul_rn(code_of(w[u], 1), s),
+                                            __fmul_rn(code_of(w[u], 2), s),
+                                            __fmul_rn(code_of(w[u], 3), s)));
+          }
+        }
       }
-    }
-  } else {
-    const long long total = N * D;
-    for (; i < total; i += stride) {
-      out[i] = __fmul_rn(static_cast<float>(values[i]), scales[i / D]);
+    } else {
+      for (int c = lane; c < D; c += 32) {
+        out[base + c] = __fmul_rn(static_cast<float>(values[base + c]), s);
+      }
     }
   }
 }
 
-unsigned grid_for(long long work) {
-  const long long blocks = (work + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL);
+// One wave of K8's blocks over the card's SMs (at most the rows need), or
+// 0 on an error (then in *err).
+unsigned dequantize_grid(bool vec, int N, cudaError_t* err) {
+  int dev = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess) {
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (*err == cudaSuccess) {
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm,
+        vec ? dequantize_rows_kernel<true> : dequantize_rows_kernel<false>,
+        kThreads, 0);
+  }
+  if (*err == cudaSuccess && per_sm == 0) {
+    *err = cudaErrorInvalidConfiguration;
+  }
+  if (*err != cudaSuccess) return 0;
+  const long long need = (static_cast<long long>(N) + kRowsPerBlock - 1) /
+                         kRowsPerBlock;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  return static_cast<unsigned>(need < wave ? need : wave);
 }
 
 bool aligned(const void* p, uintptr_t a) {
@@ -201,16 +268,17 @@ extern "C" int osr_dequantize_symmetric(const void* values,
   if (N < 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(N) * D;
+  const bool vec = D % 4 == 0 && aligned(values, 4) && aligned(out, 16);
+  cudaError_t err;
+  const unsigned blocks = dequantize_grid(vec, N, &err);
+  if (blocks == 0) return static_cast<int>(err);
   const int8_t* v = static_cast<const int8_t*>(values);
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
-  if (D % 16 == 0 && aligned(values, 16) && aligned(out, 16)) {
-    dequantize_rows_kernel<true>
-        <<<grid_for(total / 16), kThreads, 0, s>>>(v, sc, o, N, D);
+  if (vec) {
+    dequantize_rows_kernel<true><<<blocks, kThreads, 0, s>>>(v, sc, o, N, D);
   } else {
-    dequantize_rows_kernel<false>
-        <<<grid_for(total), kThreads, 0, s>>>(v, sc, o, N, D);
+    dequantize_rows_kernel<false><<<blocks, kThreads, 0, s>>>(v, sc, o, N, D);
   }
   return static_cast<int>(cudaGetLastError());
 }

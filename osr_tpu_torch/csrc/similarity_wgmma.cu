@@ -1,31 +1,39 @@
-// int4 dense similarity kernel for Hopper (sm_90a): K6, a persistent TMA +
-// integer wgmma kernel whose output store overlaps the next tile.
+// Dense similarity kernels for Hopper (sm_90a): K5 (int8 corpus) and K6
+// (int4 corpus), one persistent TMA + integer wgmma kernel template whose
+// output store overlaps the next tile.
 //
-// Replaces osr_tpu/ops/pallas/matmul.py:_kernel_i4 (:36), launched via
-// int4_similarity_pallas. K5 (the int8 corpus) is matmul.cu.
+// Replaces the Pallas kernels of osr_tpu/ops/pallas/matmul.py:
+//   K5  _kernel     (:24), launched via int8_similarity_pallas
+//   K6  _kernel_i4  (:36), launched via int4_similarity_pallas
 //
-// What it computes, for int8 queries q (B, D) with scales qs (B,) and a
-// corpus of N rows of D/2 packed bytes with scales ds (N,):
+// What they compute, for int8 queries q (B, D) with scales qs (B,) and a
+// corpus of N rows with scales ds (N,):
 //   acc[b, n] = sum_c q[b, c] * code[n, c]             (exact, in int32)
 //   out[b, n] = (float(acc[b, n]) * qs[b]) * ds[n]     (two f32 multiplies)
-// Byte c's low nibble is column c and its high nibble column c + D/2, each
-// a two's-complement code ((v & 0xF) ^ 8) - 8. The integer sum is exact,
-// the int32 -> f32 conversion rounds to nearest and the multiplies keep
-// their order with no FMA, so the kernel equals the plain PyTorch version
-// (ops/matmul.py:int4_similarity_plain) bit for bit.
+// K5's corpus holds the int8 codes, (N, D). K6's holds D/2 packed bytes a
+// row: byte c's low nibble is column c and its high nibble column c + D/2,
+// each a two's-complement code ((v & 0xF) ^ 8) - 8. The integer sum is
+// exact, the int32 -> f32 conversion rounds to nearest and the multiplies
+// keep their order with no FMA, so each kernel equals its plain PyTorch
+// version (ops/matmul.py:int8_similarity_plain, int4_similarity_plain) bit
+// for bit.
 //
-// Operands, built by the wrapper (ops/matmul.py:int4_kernel_operands):
-// the corpus (N, HP) uint8 with HP, the packed width, a multiple of 16
-// (TMA's stride unit; a narrower row is zero-padded, and zero bytes decode
-// to 0), and the queries (B, 2 HP) int8: columns [0, D/2) of q at 0 and
-// [D/2, D) at HP, zeros elsewhere. At HP = D/2 that is q itself.
+// Operands, built by the wrappers (ops/matmul.py:int8_kernel_operands,
+// int4_kernel_operands), W bytes a row with W a multiple of 16 (TMA's
+// stride unit; a narrower row is zero-padded, and zeros add nothing):
+// - K5: queries (B, W) and corpus (N, W) int8, W = D rounded up to 16.
+// - K6: corpus (N, W) uint8, W = D/2 rounded up to 16 (zero bytes decode
+//   to 0), and queries (B, 2 W) int8: columns [0, D/2) of q at 0 and
+//   [D/2, D) at W, zeros elsewhere.
+// At W = D (K5) or D/2 (K6) the operands are the inputs themselves.
 //
 // Bound on an H100. At the dense path's shape (B = 1,024, N = 1,000,000,
 // D = 768) the products are 1.57e15 int8 operations, 0.79 ms at 1,979
-// TOP/s; the bytes are 0.38 GB of corpus and the 4.10 GB (B, N) f32 output,
-// 1.34 ms at 3.35 TB/s. So the output write bounds it: each SM has to
-// store a 64 KB tile every ~2.6 us (473.5 tiles per SM), while a tile's
-// tensor math takes ~1.7 us. The design keeps the store stream busy.
+// TOP/s; the bytes are the corpus (0.77 GB int8, 0.38 GB int4) and the
+// 4.10 GB (B, N) f32 output: 1.45 ms (K5) and 1.34 ms (K6) at 3.35 TB/s.
+// So the output write bounds both: each SM has to store a 64 KB tile every
+// ~2.6 us (473.5 tiles per SM), while a tile's tensor math takes ~1.7 us.
+// The design keeps the store stream busy.
 //
 // Design. One block per SM (the grid is the SM count), 288 threads: two
 // consumer warpgroups (64 docs each) and one producer warp. A block walks
@@ -35,24 +43,31 @@
 // - TMA ring. One producer thread keeps kStages stages in flight with
 //   cp.async.bulk.tensor.2d, each guarded by a full and an empty mbarrier;
 //   it runs on into the next tile's stages while the consumers are in an
-//   epilogue. A stage covers 128 logical columns: 64 packed bytes of the
-//   128 corpus rows (8 KB, raw) and two query tiles of 128 queries x 64
-//   bytes, columns [c, c + 64) and [HP + c, HP + c + 64): 24 KB, 64B
-//   swizzle throughout. B, N and HP off the tiles come from TMA's zero
-//   fill; a low query tile that runs into the high half meets zero-filled
-//   corpus bytes there.
-// - Register A operand. The corpus rows are wgmma's A (M = docs), decoded
-//   in registers; the queries are B, from shared memory, K-major. One
-//   32-bit load of 4 packed bytes gives a thread 4 low-nibble codes (a
-//   register of a low k-step) and 4 high-nibble codes (the same register
-//   of the matching high k-step): 8 loads a stage, conflict free under the
-//   swizzle. Each code becomes v | (v & 8 ? 0xF0 : 0), byte for byte, in
-//   three integer ops per 4 codes. The fragments are double buffered
-//   across stages and pinned before wgmma.fence, or ptxas serializes the
-//   pipeline.
-// - wgmma m64n128k32 s8 x s8 -> s32: 4 k-steps a stage (two low, two
-//   high). wait_group 1 keeps one stage's products in flight while the next
-//   decodes; each tile's first product has scale-d = 0.
+//   epilogue. B, N and W off the tiles come from TMA's zero fill.
+//   - K5: a stage is kChunkBytes columns (OSR_K5_CHUNK_BYTES: 128, 128B
+//     swizzle, 5 stages; or 64, 64B swizzle, 10 stages) of the 128 queries
+//     and of the 128 corpus rows: 32 KB (16 KB).
+//   - K6: a stage covers 128 logical columns: 64 packed bytes of the 128
+//     corpus rows (8 KB, raw) and two query tiles of 128 queries x 64
+//     bytes, columns [c, c + 64) and [W + c, W + c + 64): 24 KB, 64B
+//     swizzle throughout, 6 stages. A low query tile that runs into the
+//     high half meets zero-filled corpus bytes there.
+// - wgmma m64n128k32 s8 x s8 -> s32, the corpus rows as A (M = docs) and
+//   the queries as B, both K-major, as TMA wrote them.
+//   - K5: A and B both from shared memory (the "ss" form; 8-bit wgmma
+//     takes K-major operands only), kChunkBytes / 32 k-steps a stage. No
+//     fragment registers.
+//   - K6: A in registers, decoded from the raw tile. One 32-bit load of 4
+//     packed bytes gives a thread 4 low-nibble codes (a register of a low
+//     k-step) and 4 high-nibble codes (the same register of the matching
+//     high k-step): 8 loads a stage, conflict free under the swizzle. Each
+//     code becomes v | (v & 8 ? 0xF0 : 0), byte for byte, in three integer
+//     ops per 4 codes. The fragments are double buffered across stages and
+//     pinned before wgmma.fence, or ptxas serializes the pipeline. 4
+//     k-steps a stage (two low, two high).
+//   wait_group 1 keeps one stage's products in flight while the next is
+//   issued; each tile's first product has scale-d = 0, and no other
+//   instruction writes the accumulators.
 // - Epilogue. Each thread's scale (of a query or a doc of the tile) is
 //   loaded into a register when the tile's main loop starts, so that its
 //   latency hides there. The accumulators (doc 64 wg + 16 w + g (+ 8),
@@ -62,19 +77,25 @@
 //   writes are conflict free. One thread then issues four TMA stores
 //   (cp.async.bulk.tensor, one bulk group) and the block goes on to the
 //   next tile; before the staging tile is written again it waits only for
-//   the previous store's read of it
-//   (cp.async.bulk.wait_group.read), so a tile's store overlaps the next
-//   tile's main loop. TMA's store clips rows past B and columns past N. An
-//   output whose row stride is not a multiple of 16 bytes (N % 4 != 0)
-//   has no tensor map: there (kTmaStore false) the warps store the staging
-//   tile with guarded plain stores, one query row of 128 bytes a box.
-// Shared memory: 6 stages (144 KB) + staging (64 KB) + 1 KB alignment.
-// Measured on an H100 and not taken (PERF.md, PR 7): query tiles kept in
-// shared memory while a block walks the corpus (a third of the L2 reads,
-// but no faster), the two warpgroups taking alternate 64-doc halves in
-// turn (slower: one warpgroup alone issues its dependent products at well
-// under the tensor rate), and two accumulator sets per warpgroup (ptxas
-// caps a block of this size at 168 registers, then spills and serializes).
+//   the previous store's read of it (cp.async.bulk.wait_group.read), so a
+//   tile's store overlaps the next tile's main loop. TMA's store clips rows
+//   past B and columns past N. An output whose row stride is not a
+//   multiple of 16 bytes (N % 4 != 0) has no tensor map: there (kTmaStore
+//   false) the warps store the staging tile with guarded plain stores, one
+//   query row of 128 bytes a box.
+// Shared memory: the ring (K5 160 KB, K6 144 KB) + staging (64 KB) + 1 KB
+// alignment.
+// Measured on an H100 and not taken (PERF.md, Findings):
+// query tiles kept in shared memory while a block walks the corpus (a
+// third (K6) or half (K5) of the L2 reads, but slower: the corpus ring
+// left beside them is too shallow), the two warpgroups taking alternate
+// 64-doc halves in turn (slower: one warpgroup alone issues its dependent
+// products at well under the tensor rate), two accumulator sets per
+// warpgroup for K6 (ptxas caps a block of this size at 168 registers,
+// then spills and serializes), K5's 64-byte stages (slower) and 256-query
+// tiles (a quarter fewer L2 reads, no faster; both options above), and K5
+// as clusters of two blocks that multicast each query stage to both (half
+// the query reads, but much slower).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -82,33 +103,55 @@
 
 #include "hopper.cuh"
 
+// K5's tile, kept selectable for osr_tpu_torch/kernel_variants.py, which
+// times the forms on the card (PERF.md, Findings): the stage width in bytes,
+// 128 (the default, the faster) or 64, and the queries per tile, 128 (the
+// default) or 256 (m64n256k32, 128 accumulators a thread; the epilogue
+// stores the tile in two halves). Each ring holds 160 KB at most.
+#ifndef OSR_K5_CHUNK_BYTES
+#define OSR_K5_CHUNK_BYTES 128
+#endif
+#ifndef OSR_K5_QUERIES
+#define OSR_K5_QUERIES 128
+#endif
+
 namespace {
 
-constexpr int kTileM = 128;       // queries per tile
+constexpr int kTileM = 128;       // queries per tile (K5: per tile half)
 constexpr int kTileN = 128;       // docs per tile
-constexpr int kChunkBytes = 64;   // packed corpus bytes a row per stage
-constexpr int kStages = 6;        // TMA ring depth
 constexpr int kConsumers = 256;   // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
-// Stage s, from a 1024-byte aligned base: the low and high query tiles,
-// then the raw corpus tile, 8 KB each (64-byte rows, 64B swizzle).
-constexpr int kBoxBytes = kTileM * kChunkBytes;
-constexpr int kStageBytes = 3 * kBoxBytes;
 // The staging tile: four boxes of (128 queries x 32 docs) f32, 128-byte
 // rows, 128B swizzle.
 constexpr int kOutBoxCols = 32;
 constexpr int kOutBoxBytes = kTileM * kOutBoxCols * 4;
 constexpr int kStagingBytes = (kTileN / kOutBoxCols) * kOutBoxBytes;
-constexpr int kSmemBytes = kStages * kStageBytes + kStagingBytes + 1024;
 
-// Shared-memory matrix descriptor of a K-major tile with 64B swizzle: rows
-// of 64 bytes, 8-row groups 512 bytes apart (SBO); the leading byte offset
-// is unused for this layout. A k-step of 32 int8 (32 bytes) inside the
-// 64-byte row adds 2 to the address field.
-__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{512 >> 4} << 32) | (uint64_t{2} << 62);
+// Stage geometry of one corpus dtype. Stage s, from a 1024-byte aligned
+// base: the query box(es), then the corpus box, rows of kChunkBytes (K6:
+// the low and the high query box, then the raw corpus box, 128 rows each;
+// K5: kQueries query rows, then 128 corpus rows).
+template <bool kInt4>
+struct Geometry {
+  static constexpr int kQueries = kInt4 ? kTileM : OSR_K5_QUERIES;
+  static constexpr int kChunkBytes = kInt4 ? 64 : OSR_K5_CHUNK_BYTES;
+  static constexpr int kBoxBytes = kTileM * kChunkBytes;
+  static constexpr int kQueryBytes = kQueries * kChunkBytes;  // K5's box
+  static constexpr int kStageBytes =
+      kInt4 ? 3 * kBoxBytes : kQueryBytes + kBoxBytes;
+  static constexpr int kStages = kInt4 ? 6 : 160 * 1024 / kStageBytes;
+  static constexpr int kSmemBytes =
+      kStages * kStageBytes + kStagingBytes + 1024;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kChunkBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  static_assert(kChunkBytes == 64 || kChunkBytes == 128,
+                "a stage is 64 or 128 bytes a row");
+};
+
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t kmajor_desc(const void* tile) {
+  return kRowBytes == 128 ? sw128_desc(tile) : sw64_desc(tile);
 }
 
 // d (64 x 128, s32, this thread's 64 values) = a (64 x 32 s8, this
@@ -144,7 +187,84 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int* d,
         "r"(accumulate));
 }
 
-// ---- decode -----------------------------------------------------------------
+// The same product with a (64 x 32 s8) from shared memory too (K5).
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int* d, uint64_t da,
+                                                       uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with 256 queries: d (64 x 256, s32, this thread's 128 values).
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int* d, uint64_t da,
+                                                       uint64_t db,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- K6's decode ------------------------------------------------------------
 
 // Four packed bytes -> the signed codes of their low nibbles (*lo) and of
 // their high nibbles (*hi), byte for byte: nibble v becomes v | (v & 8 ?
@@ -177,7 +297,7 @@ __device__ __forceinline__ void decode_fragments(uint32_t raw, int row0,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 8 * h;
-    const uint32_t row = raw + r * kChunkBytes + 4 * t;
+    const uint32_t row = raw + r * Geometry<true>::kChunkBytes + 4 * t;
     const int sw = (r >> 1) & 3;
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
@@ -196,62 +316,87 @@ __device__ __forceinline__ void consumer_barrier() {
 // ---- the kernel -------------------------------------------------------------
 
 // Stage it (the block's running count; k-th of its tile) of a consumer
-// warpgroup's main loop: wait for the stage, decode its corpus bytes into
-// the fragment buffer a (free: its last products were retired by the
-// previous stage's wait), issue the stage's 4 products, then retire stage
-// it - 1's products and release its stage to the producer (within the
-// tile; the tile's last stage is released after its final wait).
+// warpgroup's main loop: wait for the stage, issue its products, then
+// retire stage it - 1's products and release its stage to the producer
+// (within the tile; the tile's last stage is released after its final
+// wait). K6 first decodes its corpus bytes into the fragment buffer a
+// (free: its last products were retired by the previous stage's wait); K5
+// reads both operands from the stage (a is unused).
+template <bool kInt4>
 __device__ __forceinline__ void consume_stage(int it, int k, uint8_t* smem,
                                               uint64_t* full_bar,
-                                              uint64_t* empty_bar, int row0,
-                                              int lane, uint32_t (&a)[4][4],
+                                              uint64_t* empty_bar, int wg,
+                                              int row0, int lane,
+                                              uint32_t (&a)[4][4],
                                               int* acc) {
-  const int s = it % kStages;
-  uint8_t* stage = smem + s * kStageBytes;
-  mbar_wait(&full_bar[s], (it / kStages) & 1);
-  decode_fragments(smem_u32(stage + 2 * kBoxBytes), row0, lane & 3, a);
-  const uint64_t b_lo = sw64_desc(stage);
-  const uint64_t b_hi = sw64_desc(stage + kBoxBytes);
-  keep_live(a);
-  wgmma_fence();
-  wgmma_m64n128k32_s8_rs(acc, a[0], b_lo, k > 0);
-  wgmma_m64n128k32_s8_rs(acc, a[1], b_lo + 2, 1);
-  wgmma_m64n128k32_s8_rs(acc, a[2], b_hi, 1);
-  wgmma_m64n128k32_s8_rs(acc, a[3], b_hi + 2, 1);
+  using Geo = Geometry<kInt4>;
+  const int s = it % Geo::kStages;
+  uint8_t* stage = smem + s * Geo::kStageBytes;
+  mbar_wait(&full_bar[s], (it / Geo::kStages) & 1);
+  if constexpr (kInt4) {
+    decode_fragments(smem_u32(stage + 2 * Geo::kBoxBytes), row0, lane & 3,
+                     a);
+    const uint64_t b_lo = sw64_desc(stage);
+    const uint64_t b_hi = sw64_desc(stage + Geo::kBoxBytes);
+    keep_live(a);
+    wgmma_fence();
+    wgmma_m64n128k32_s8_rs(acc, a[0], b_lo, k > 0);
+    wgmma_m64n128k32_s8_rs(acc, a[1], b_lo + 2, 1);
+    wgmma_m64n128k32_s8_rs(acc, a[2], b_hi, 1);
+    wgmma_m64n128k32_s8_rs(acc, a[3], b_hi + 2, 1);
+  } else {
+    constexpr int kRow = Geo::kChunkBytes;
+    const uint64_t da =
+        kmajor_desc<kRow>(stage + Geo::kQueryBytes + wg * 64 * kRow);
+    const uint64_t db = kmajor_desc<kRow>(stage);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRow / 32; ++kk) {
+      if constexpr (Geo::kQueries == 256) {
+        wgmma_m64n256k32_s8_ss(acc, da + 2 * kk, db + 2 * kk,
+                               k > 0 || kk > 0);
+      } else {
+        wgmma_m64n128k32_s8_ss(acc, da + 2 * kk, db + 2 * kk,
+                               k > 0 || kk > 0);
+      }
+    }
+  }
   wgmma_commit();
   wgmma_wait<1>();
-  if (k > 0 && lane == 0) mbar_arrive(&empty_bar[(it - 1) % kStages]);
+  if (k > 0 && lane == 0) mbar_arrive(&empty_bar[(it - 1) % Geo::kStages]);
 }
 
-// tq:  (B, 2 HP) int8 queries; box 64 bytes x 128 rows, 64B swizzle
-// td:  (N, HP) uint8 packed corpus; box 64 bytes x 128 rows, 64B swizzle
+// tq:  K5: (B, W) int8 queries; K6: (B, 2 W); box kChunkBytes x 128 rows
+// td:  (N, W) corpus bytes; box kChunkBytes x 128 rows
 // to:  (B, N) f32 output; box 32 x 128, 128B swizzle (kTmaStore only)
 // qs (B,), ds (N,) f32 scales; out (B, N) f32 (the plain stores)
-template <bool kTmaStore>
+template <bool kInt4, bool kTmaStore>
 __global__ void __launch_bounds__(kThreads, 1)
     similarity_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap td,
                             const __grid_constant__ CUtensorMap to,
                             const float* __restrict__ qs,
                             const float* __restrict__ ds,
-                            float* __restrict__ out, int B, int N, int HP,
+                            float* __restrict__ out, int B, int N, int W,
                             int n_qtiles, int n_tiles) {
+  using Geo = Geometry<kInt4>;
+  constexpr int kQ = Geo::kQueries;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full_bar[kStages];
-  __shared__ __align__(8) uint64_t empty_bar[kStages];
-  __shared__ __align__(16) float s_qs[kTileM];
+  __shared__ __align__(8) uint64_t full_bar[Geo::kStages];
+  __shared__ __align__(8) uint64_t empty_bar[Geo::kStages];
+  __shared__ __align__(16) float s_qs[kQ];
   __shared__ float s_ds[kTileN];
   // Offset, not cast, to the aligned base: the compiler then still knows
   // the pointer is shared memory.
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* staging = smem + kStages * kStageBytes;
+  uint8_t* staging = smem + Geo::kStages * Geo::kStageBytes;
 
   const int tid = threadIdx.x;
-  const int n_chunks = (HP + kChunkBytes - 1) / kChunkBytes;
+  const int n_chunks = (W + Geo::kChunkBytes - 1) / Geo::kChunkBytes;
 
   if (tid == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < Geo::kStages; ++s) {
       mbar_init(&full_bar[s], 1);
       mbar_init(&empty_bar[s], kConsumers / 32);  // one arrival per warp
     }
@@ -264,19 +409,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tid == kConsumers) {
       int it = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int m0 = (tile % n_qtiles) * kTileM;
+        const int m0 = (tile % n_qtiles) * kQ;
         const int n0 = (tile / n_qtiles) * kTileN;
         for (int k = 0; k < n_chunks; ++k, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) {
-            mbar_wait(&empty_bar[s], ((it / kStages) - 1) & 1);
+          const int s = it % Geo::kStages;
+          if (it >= Geo::kStages) {
+            mbar_wait(&empty_bar[s], ((it / Geo::kStages) - 1) & 1);
           }
-          mbar_expect_tx(&full_bar[s], kStageBytes);
-          uint8_t* stage = smem + s * kStageBytes;
-          const int c = k * kChunkBytes;
+          mbar_expect_tx(&full_bar[s], Geo::kStageBytes);
+          uint8_t* stage = smem + s * Geo::kStageBytes;
+          const int c = k * Geo::kChunkBytes;
           tma_load_2d(stage, &tq, &full_bar[s], c, m0);
-          tma_load_2d(stage + kBoxBytes, &tq, &full_bar[s], HP + c, m0);
-          tma_load_2d(stage + 2 * kBoxBytes, &td, &full_bar[s], c, n0);
+          if constexpr (kInt4) {
+            tma_load_2d(stage + Geo::kBoxBytes, &tq, &full_bar[s], W + c,
+                        m0);
+          }
+          tma_load_2d(stage + (kInt4 ? 2 * Geo::kBoxBytes : Geo::kQueryBytes),
+                      &td, &full_bar[s], c, n0);
         }
       }
     }
@@ -292,94 +441,100 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int row0 = 64 * wg + 16 * w + g;  // this thread's docs: +0, +8
-  int acc[64];
-  uint32_t frag[2][4][4];  // A fragments, double buffered across stages
+  int acc[kQ / 2];
+  uint32_t frag[2][4][4];  // K6's A fragments, double buffered
 
   int base = 0;  // the block's running stage count at this tile's start
   for (int tile = blockIdx.x; tile < n_tiles;
        tile += gridDim.x, base += n_chunks) {
-    const int m0 = (tile % n_qtiles) * kTileM;
+    const int m0 = (tile % n_qtiles) * kQ;
     const int n0 = (tile / n_qtiles) * kTileN;
-    // This thread's scale for the epilogue (query m0 + tid, or doc n0 +
-    // tid - 128), loaded now so that its latency hides under the main loop.
-    const int si = tid < kTileM ? m0 + tid : n0 + tid - kTileM;
-    const float scale = tid < kTileM ? (si < B ? qs[si] : 0.0f)
-                                     : (si < N ? ds[si] : 0.0f);
+    // This thread's scales for the epilogue (query m0 + tid, and/or doc n0
+    // + di), loaded now so that their latency hides under the main loop.
+    const int di = kQ == kTileM ? tid - kTileM : tid;
+    const float qscale = tid < kQ && m0 + tid < B ? qs[m0 + tid] : 0.0f;
+    const float dscale =
+        di >= 0 && di < kTileN && n0 + di < N ? ds[n0 + di] : 0.0f;
     int k = 0;
     for (; k + 1 < n_chunks; k += 2) {  // two stages, one per buffer
-      consume_stage(base + k, k, smem, full_bar, empty_bar, row0, lane,
-                    frag[0], acc);
-      consume_stage(base + k + 1, k + 1, smem, full_bar, empty_bar, row0,
-                    lane, frag[1], acc);
+      consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
+                           lane, frag[0], acc);
+      consume_stage<kInt4>(base + k + 1, k + 1, smem, full_bar, empty_bar,
+                           wg, row0, lane, frag[1], acc);
     }
     if (k < n_chunks) {
-      consume_stage(base + k, k, smem, full_bar, empty_bar, row0, lane,
-                    frag[0], acc);
+      consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
+                           lane, frag[0], acc);
     }
     wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(&empty_bar[(base + n_chunks - 1) % kStages]);
+    if (lane == 0) {
+      mbar_arrive(&empty_bar[(base + n_chunks - 1) % Geo::kStages]);
+    }
 
     // Epilogue. The scales of this tile's queries and docs go to shared
     // memory (the previous epilogue's reads of them ended before its
-    // second barrier). The staging tile is free once the previous tile's
-    // store has read it (TMA) or every warp has stored it (plain).
-    if (tid < kTileM) {
-      s_qs[tid] = scale;
-    } else {
-      s_ds[tid - kTileM] = scale;
-    }
-    if (kTmaStore && tid == 0) bulk_wait_read<0>();
-    consumer_barrier();
-    // acc[4 j + 2 h + e] is (doc row0 + 8 h, query 8 j + 2 t + e): box
-    // doc / 32, row query, 16-byte chunk ((doc % 32) / 4) ^ (query & 7).
-    const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
+    // last barrier). Then each 128 queries of the tile in turn: the
+    // staging tile is free once the previous store has read it (TMA) or
+    // every warp has stored it (plain).
+    if (tid < kQ) s_qs[tid] = qscale;
+    if (di >= 0 && di < kTileN) s_ds[di] = dscale;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float2 q2 =
-          *reinterpret_cast<const float2*>(&s_qs[8 * j + 2 * t]);
+    for (int hq = 0; hq < kQ / kTileM; ++hq) {
+      const int mh = m0 + kTileM * hq;
+      if (kTmaStore && tid == 0) bulk_wait_read<0>();
+      consumer_barrier();
+      // acc[4 (16 hq + j) + 2 h + e] is (doc row0 + 8 h, query 128 hq + 8 j
+      // + 2 t + e): box doc / 32, row query % 128, 16-byte chunk ((doc %
+      // 32) / 4) ^ (query & 7).
+      const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int j = 0; j < 16; ++j) {
+        const float2 q2 = *reinterpret_cast<const float2*>(
+            &s_qs[kTileM * hq + 8 * j + 2 * t]);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int doc = row0 + 8 * h;
-          const int ql = 8 * j + 2 * t + e;
-          const float v = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
-                        e ? q2.y : q2.x),
-              dsc[h]);
-          *reinterpret_cast<float*>(
-              staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
-              ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
-        }
-    }
-    if constexpr (kTmaStore) fence_proxy_async();
-    consumer_barrier();
-    if constexpr (kTmaStore) {
-      if (tid == 0) {
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
-          if (n0 + kOutBoxCols * i < N) {
-            tma_store_2d(&to, staging + i * kOutBoxBytes,
-                         n0 + kOutBoxCols * i, m0);
+          for (int e = 0; e < 2; ++e) {
+            const int doc = row0 + 8 * h;
+            const int ql = 8 * j + 2 * t + e;
+            const float v = __fmul_rn(
+                __fmul_rn(__int2float_rn(acc[4 * (16 * hq + j) + 2 * h + e]),
+                          e ? q2.y : q2.x),
+                dsc[h]);
+            *reinterpret_cast<float*>(
+                staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
+                ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
           }
-        }
-        bulk_commit();
       }
-    } else {
-      // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of box
-      // x (conflict free) and writes it: 128 contiguous bytes a box.
-      const int wp = tid >> 5;
-      for (int i = 0; i < kTileM / 8; ++i) {
-        const int ql = wp + 8 * i;
-        const int mq = m0 + ql;
-        if (mq >= B) break;
+      if constexpr (kTmaStore) fence_proxy_async();
+      consumer_barrier();
+      if constexpr (kTmaStore) {
+        if (tid == 0 && mh < B) {
 #pragma unroll
-        for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
-          const int n = n0 + kOutBoxCols * x + lane;
-          const float v = *reinterpret_cast<const float*>(
-              staging + x * kOutBoxBytes + ql * 128 +
-              (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
-          if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
+          for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
+            if (n0 + kOutBoxCols * i < N) {
+              tma_store_2d(&to, staging + i * kOutBoxBytes,
+                           n0 + kOutBoxCols * i, mh);
+            }
+          }
+          bulk_commit();
+        }
+      } else {
+        // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of
+        // box x (conflict free) and writes it: 128 contiguous bytes a box.
+        const int wp = tid >> 5;
+        for (int i = 0; i < kTileM / 8; ++i) {
+          const int ql = wp + 8 * i;
+          const int mq = mh + ql;
+          if (mq >= B) break;
+#pragma unroll
+          for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
+            const int n = n0 + kOutBoxCols * x + lane;
+            const float v = *reinterpret_cast<const float*>(
+                staging + x * kOutBoxBytes + ql * 128 +
+                (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
+            if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
+          }
         }
       }
     }
@@ -387,19 +542,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (kTmaStore && tid == 0) bulk_wait_all();
 }
 
-template <bool kTmaStore>
+template <bool kInt4, bool kTmaStore>
 int launch(const void* q, const void* d, const void* qs, const void* ds,
-           void* out, int B, int N, int HP, cudaStream_t stream) {
-  const int n_qtiles = (B + kTileM - 1) / kTileM;
+           void* out, int B, int N, int W, cudaStream_t stream) {
+  using Geo = Geometry<kInt4>;
+  const int n_qtiles = (B + Geo::kQueries - 1) / Geo::kQueries;
   const int n_ntiles = (N + kTileN - 1) / kTileN;
   const long long tiles = static_cast<long long>(n_qtiles) * n_ntiles;
   if (tiles == 0) return 0;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, td, to;
-  if (!encode_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, 2 * HP, B,
-                 kChunkBytes, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !encode_2d(&td, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, d, HP, N,
-                 kChunkBytes, CU_TENSOR_MAP_SWIZZLE_64B)) {
+  if (!encode_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q,
+                 kInt4 ? 2 * W : W, B, Geo::kChunkBytes, Geo::kSwizzle,
+                 Geo::kQueries) ||
+      !encode_2d(&td, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, d, W, N,
+                 Geo::kChunkBytes, Geo::kSwizzle)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (kTmaStore) {
@@ -416,15 +573,16 @@ int launch(const void* q, const void* d, const void* qs, const void* ds,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(similarity_wgmma_kernel<kTmaStore>,
+  err = cudaFuncSetAttribute(similarity_wgmma_kernel<kInt4, kTmaStore>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             Geo::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  similarity_wgmma_kernel<kTmaStore><<<grid, kThreads, kSmemBytes, stream>>>(
-      tq, td, to, static_cast<const float*>(qs),
-      static_cast<const float*>(ds), static_cast<float*>(out), B, N, HP,
-      n_qtiles, static_cast<int>(tiles));
+  similarity_wgmma_kernel<kInt4, kTmaStore>
+      <<<grid, kThreads, Geo::kSmemBytes, stream>>>(
+          tq, td, to, static_cast<const float*>(qs),
+          static_cast<const float*>(ds), static_cast<float*>(out), B, N, W,
+          n_qtiles, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -432,27 +590,45 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-// K6: (B, N) f32 similarity of a packed int4 corpus. q is the (B, 2 HP)
-// int8 query operand and d the (N, HP) corpus operand (see the top of this
-// file), both 16-byte aligned, HP % 16 == 0. Returns a cudaError_t value:
-// 0 on a successful launch.
-extern "C" int osr_similarity_i4(const void* q, const void* d,
-                                 const void* qs, const void* ds, void* out,
-                                 int B, int N, int HP, void* stream) {
-  if (B < 0 || N < 0 || HP <= 0 || HP % 16 != 0 || !aligned16(q) ||
+template <bool kInt4>
+int similarity(const void* q, const void* d, const void* qs, const void* ds,
+               void* out, int B, int N, int W, void* stream) {
+  if (B < 0 || N < 0 || W <= 0 || W % 16 != 0 || !aligned16(q) ||
       !aligned16(d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return N % 4 == 0 && aligned16(out)
-             ? launch<true>(q, d, qs, ds, out, B, N, HP, s)
-             : launch<false>(q, d, qs, ds, out, B, N, HP, s);
+             ? launch<kInt4, true>(q, d, qs, ds, out, B, N, W, s)
+             : launch<kInt4, false>(q, d, qs, ds, out, B, N, W, s);
 }
 
-// Dynamic shared memory a launch requests, in bytes.
-extern "C" int osr_similarity_wgmma_smem_bytes() { return kSmemBytes; }
+}  // namespace
+
+// K5: (B, N) f32 similarity of an int8 corpus. q is the (B, W) int8 query
+// operand and d the (N, W) corpus operand (see the top of this file), both
+// 16-byte aligned, W % 16 == 0. Returns a cudaError_t value: 0 on a
+// successful launch.
+extern "C" int osr_similarity_i8(const void* q, const void* d,
+                                 const void* qs, const void* ds, void* out,
+                                 int B, int N, int W, void* stream) {
+  return similarity<false>(q, d, qs, ds, out, B, N, W, stream);
+}
+
+// K6: (B, N) f32 similarity of a packed int4 corpus. q is the (B, 2 W)
+// int8 query operand and d the (N, W) corpus operand, both 16-byte
+// aligned, W % 16 == 0. Returns a cudaError_t value.
+extern "C" int osr_similarity_i4(const void* q, const void* d,
+                                 const void* qs, const void* ds, void* out,
+                                 int B, int N, int W, void* stream) {
+  return similarity<true>(q, d, qs, ds, out, B, N, W, stream);
+}
+
+// Dynamic shared memory a launch of K6 (int4 != 0) or K5 requests, in
+// bytes.
+extern "C" int osr_similarity_wgmma_smem_bytes(int int4) {
+  return int4 ? Geometry<true>::kSmemBytes : Geometry<false>::kSmemBytes;
+}
 
 extern "C" const char* osr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -67,16 +67,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             blocktopm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.osr_head_wgmma_smem_bytes.restype = ci
         lib.osr_head_wgmma_smem_bytes.argtypes = [ci]
-    elif name == "matmul":
-        lib.osr_similarity.restype = ci
-        lib.osr_similarity.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
     elif name == "similarity_wgmma":
-        lib.osr_similarity_i4.restype = ci
-        lib.osr_similarity_i4.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, vp,
-        ]
+        for entry in (lib.osr_similarity_i8, lib.osr_similarity_i4):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.osr_similarity_wgmma_smem_bytes.restype = ci
-        lib.osr_similarity_wgmma_smem_bytes.argtypes = []
+        lib.osr_similarity_wgmma_smem_bytes.argtypes = [ci]
     elif name == "quantize":
         lib.osr_quantize_symmetric.restype = ci
         lib.osr_quantize_symmetric.argtypes = [

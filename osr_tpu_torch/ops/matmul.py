@@ -13,24 +13,24 @@ Wrappers, each with its plain version beside it:
 - :func:`int4_similarity` launches K6. Replaces ``_kernel_i4`` (via
   ``int4_similarity_pallas``).
 
-Two CUDA sources. At the dense path's shape (B=1,024, N=1,000,000, D=768)
-on an H100 both kernels are bound by bytes: the (B, N) f32 output alone is
-4.10 GB, 1.22 ms of the 1.45 ms (int8) or 1.34 ms (int4) bound, against
-0.79 ms of int8 tensor-core work.
+Both kernels are one template in ``csrc/similarity_wgmma.cu``, on the
+corpus dtype: one persistent block per SM walks the (128 x 128) output
+tiles; a TMA ring feeds integer ``wgmma`` (K5 reads both operands from
+shared memory; K6 decodes the corpus nibbles into its register operand),
+and each tile leaves through a shared staging tile and a TMA store that
+overlaps the next tile's main loop. At the dense path's shape (B=1,024,
+N=1,000,000, D=768) on an H100 both are bound by bytes: the (B, N) f32
+output alone is 4.10 GB, 1.22 ms of the 1.45 ms (int8) or 1.34 ms (int4)
+bound, against 0.79 ms of int8 tensor-core work. Design notes at the top
+of the source.
 
-- K5 (``csrc/matmul.cu``): int8 ``mma.sync`` on (128 x 128) tiles staged
-  through registers; it takes every width D and masks ragged B, N and D
-  itself.
-- K6 (``csrc/similarity_wgmma.cu``): one persistent block per SM walks the
-  output tiles; a TMA ring feeds integer ``wgmma`` (the corpus nibbles
-  decoded into its register operand), and each tile leaves through a
-  shared staging tile and a TMA store that overlaps the next tile's main
-  loop. TMA needs 16-byte row strides, so :func:`int4_kernel_operands`
-  zero-pads a corpus whose packed width D/2 is not a multiple of 16 and
-  places the query's high half at the padded offset: a per-call copy,
-  counted in ``PAD_COPIES``. Every even D is taken, as before.
-
-Design notes at the top of each source.
+TMA needs 16-byte row strides and bases. So :func:`int8_kernel_operands`
+zero-pads the corpus and the queries to D rounded up to 16 where D is not
+a multiple of 16, and :func:`int4_kernel_operands` pads a packed width
+D/2 off 16 bytes and places the query's high half at the padded offset; a
+base off 16 bytes is copied too. Zero columns leave the integer sums
+unchanged. Each copy is a per-call copy, counted in ``PAD_COPIES``; every
+width D (K5) and every even D (K6) is taken.
 
 The plain versions compute the integer products in float64, exact while
 the sums stay below 2^53 (PyTorch has no integer matrix product on CUDA).
@@ -49,14 +49,15 @@ LAUNCHES: Dict[str, int] = {
     "int8_similarity": 0,  # K5
     "int4_similarity": 0,  # K6
 }
-# Operand copies K6's wrapper made (int4_kernel_operands): the padded
-# corpus, and the query with its high half placed at the padded offset.
+# Operand copies the K5 and K6 wrappers made (int8_kernel_operands,
+# int4_kernel_operands): the padded corpus, and the padded (K6: placed)
+# query.
 PAD_COPIES: Dict[str, int] = {"corpus": 0, "query": 0}
-PACKED_ALIGN = 16  # K6's packed-width and base alignment (TMA), in bytes
+TMA_ALIGN = 16  # the operands' row-width and base alignment, in bytes
 
 
 def reset_launches() -> None:
-    """Set the launch counts and K6's operand-copy counts to 0."""
+    """Set the launch counts and the operand-copy counts to 0."""
     for counts in (LAUNCHES, PAD_COPIES):
         for name in counts:
             counts[name] = 0
@@ -137,9 +138,42 @@ def _check_operands(q8, docs, q_scales, d_scales, int4: bool) -> None:
         raise ValueError("kernel dimensions must fit int32")
 
 
+def _round_up(width: int) -> int:
+    return -(-width // TMA_ALIGN) * TMA_ALIGN
+
+
+def _needs_copy(t: torch.Tensor, width: int, padded: int) -> bool:
+    return padded != width or t.data_ptr() % TMA_ALIGN != 0
+
+
+def _zero_padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A (rows, width) zero copy of t with t's columns first."""
+    out = t.new_zeros((t.shape[0], width))
+    out[:, : t.shape[1]] = t
+    return out
+
+
+def int8_kernel_operands(q8: torch.Tensor, d8: torch.Tensor):
+    """K5's operands: ((B, DP) int8 queries, (N, DP) int8 corpus, DP), DP
+    the width D rounded up to ``TMA_ALIGN``.
+
+    Both are zero-padded to DP columns, so the integer sums are unchanged.
+    At DP = D with 16-byte aligned bases the operands are the inputs
+    themselves; otherwise each copy is counted in ``PAD_COPIES``."""
+    d = d8.shape[1]
+    dp = _round_up(d)
+    if _needs_copy(d8, d, dp):
+        d8 = _zero_padded(d8, dp)
+        PAD_COPIES["corpus"] += 1
+    if _needs_copy(q8, d, dp):
+        q8 = _zero_padded(q8, dp)
+        PAD_COPIES["query"] += 1
+    return q8, d8, dp
+
+
 def int4_kernel_operands(q8: torch.Tensor, d_packed: torch.Tensor):
     """K6's operands: ((B, 2 HP) int8 queries, (N, HP) uint8 corpus, HP),
-    HP the packed width D/2 rounded up to ``PACKED_ALIGN``.
+    HP the packed width D/2 rounded up to ``TMA_ALIGN``.
 
     The corpus is zero-padded to HP bytes a row (a zero byte decodes to
     two 0 codes), and the queries' columns [D/2, D) move to [HP, HP + D/2)
@@ -148,13 +182,11 @@ def int4_kernel_operands(q8: torch.Tensor, d_packed: torch.Tensor):
     operands are the inputs themselves; otherwise each copy is counted in
     ``PAD_COPIES``."""
     h = d_packed.shape[1]
-    hp = -(-h // PACKED_ALIGN) * PACKED_ALIGN
-    if hp != h or d_packed.data_ptr() % PACKED_ALIGN:
-        padded = d_packed.new_zeros((d_packed.shape[0], hp))
-        padded[:, :h] = d_packed
-        d_packed = padded
+    hp = _round_up(h)
+    if _needs_copy(d_packed, h, hp):
+        d_packed = _zero_padded(d_packed, hp)
         PAD_COPIES["corpus"] += 1
-    if hp != h or q8.data_ptr() % PACKED_ALIGN:
+    if _needs_copy(q8, h, hp):
         placed = q8.new_zeros((q8.shape[0], 2 * hp))
         placed[:, :h] = q8[:, :h]
         placed[:, hp : hp + h] = q8[:, h:]
@@ -180,14 +212,13 @@ def _similarity(q8, docs, q_scales, d_scales, int4: bool) -> torch.Tensor:
 
     with torch.cuda.device(q8.device):
         stream = torch.cuda.current_stream(q8.device).cuda_stream
+        lib = _build.library("similarity_wgmma")
         if int4:
             q, d, width = int4_kernel_operands(q8, docs)
-            lib = _build.library("similarity_wgmma")
             entry = lib.osr_similarity_i4
         else:
-            q, d, width = q8, docs, q8.shape[1]
-            lib = _build.library("matmul")
-            entry = lib.osr_similarity
+            q, d, width = int8_kernel_operands(q8, docs)
+            entry = lib.osr_similarity_i8
         code = entry(
             q.data_ptr(), d.data_ptr(), q_scales.data_ptr(),
             d_scales.data_ptr(), out.data_ptr(), q8.shape[0], docs.shape[0],

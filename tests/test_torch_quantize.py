@@ -263,11 +263,15 @@ def test_plain_quantize_matches_pallas_interpret(jax_ref, n, d):
     assert tqk.LAUNCHES == before  # the CPU path launches no kernel
 
 
-def test_plain_int8_similarity_matches_pallas_interpret(jax_ref, embeddings):
+@pytest.mark.parametrize("b,n,d", [(128, 256, 128), (37, 300, 200)])
+def test_plain_int8_similarity_matches_pallas_interpret(jax_ref, b, n, d):
+    """K5's plain version against int8_similarity_pallas, which loads the
+    whole width D a tile: B off the 128 tile and D off 16 bytes too."""
     jnp, jqz, jpmm, _ = jax_ref
-    queries = synthetic_corpus_embeddings(128, dim=128, seed=9)
+    queries = synthetic_corpus_embeddings(b, dim=d, seed=9)
+    docs = synthetic_corpus_embeddings(n, dim=d, seed=42)
     q8, qs = jqz.quantize_symmetric(jnp.asarray(queries))
-    d8, ds = jqz.quantize_symmetric(jnp.asarray(embeddings[:256]))
+    d8, ds = jqz.quantize_symmetric(jnp.asarray(docs))
     want = jpmm.int8_similarity_pallas(q8, d8, qs, ds, interpret=True)
     before = dict(tmm.LAUNCHES)
     got = tmm.int8_similarity(
@@ -295,8 +299,68 @@ def test_plain_int4_similarity_matches_pallas_interpret(jax_ref, n, b, d):
 
 
 # ----------------------------------------------------------------------
-# K6's operands and decode (csrc/similarity_wgmma.cu), emulated here
+# K5's and K6's operands and K6's decode (csrc/similarity_wgmma.cu),
+# emulated here
 # ----------------------------------------------------------------------
+
+K5_STAGE = 128  # bytes of a row a K5 stage loads (OSR_K5_CHUNK_BYTES)
+
+
+def _k5_emulated(q8, d8, qs, ds):
+    """csrc/similarity_wgmma.cu's K5 on int8_kernel_operands's operands:
+    stage k takes columns [128 k, 128 k + 128) of the queries and of the
+    corpus, each zero past its operand's width (TMA's fill), in four
+    32-column k-steps; the sums are exact; then (float(acc) * qs) * ds in
+    f32."""
+    q, d, dp = tmm.int8_kernel_operands(q8, d8)
+    assert dp % tmm.TMA_ALIGN == 0 and q.shape[1] == d.shape[1] == dp
+    assert q.data_ptr() % tmm.TMA_ALIGN == 0
+    assert d.data_ptr() % tmm.TMA_ALIGN == 0
+    width = K5_STAGE * -(-dp // K5_STAGE)
+    qz = np.zeros((q.shape[0], width), np.int64)
+    qz[:, :dp] = q.numpy()
+    dz = np.zeros((d.shape[0], width), np.int64)
+    dz[:, :dp] = d.numpy()
+    acc = np.zeros((q.shape[0], d.shape[0]), np.int64)
+    for c in range(0, width, 32):
+        acc += qz[:, c : c + 32] @ dz[:, c : c + 32].T
+    out = acc.astype(np.float32) * qs.numpy()[:, None]
+    return out * ds.numpy()[None, :]
+
+
+@pytest.mark.parametrize("offset", [0, 8])
+@pytest.mark.parametrize("d", [16, 24, 32, 100, 128, 200, 768, 776])
+def test_k5_operands_give_plain_result(d, offset):
+    """The padded operands, read box by box as the kernel reads them, give
+    int8_similarity_plain's exact result; a copy of each operand is made
+    (and counted) exactly where D is off 16 bytes or its base is."""
+    rng = np.random.RandomState(d + offset)
+    b, n = 5, 7
+    q8, docs = _t(
+        rng.randint(-128, 128, (b, d)).astype(np.int8),
+        rng.randint(-128, 128, (n, d)).astype(np.int8),
+    )
+    if offset:  # views whose bases sit `offset` bytes past an allocation
+        q8 = torch.cat([torch.zeros(offset, dtype=torch.int8),
+                        q8.flatten()])[offset:].view(b, d)
+        docs = torch.cat([torch.zeros(offset, dtype=torch.int8),
+                          docs.flatten()])[offset:].view(n, d)
+        assert q8.data_ptr() % tmm.TMA_ALIGN != 0
+    qs, ds = _t((rng.rand(b) / 127).astype(np.float32),
+                (rng.rand(n) / 7).astype(np.float32))
+    before = dict(tmm.PAD_COPIES)
+    got = _k5_emulated(q8, docs, qs, ds)
+    copied = int(d % tmm.TMA_ALIGN != 0 or offset != 0)
+    assert tmm.PAD_COPIES == {k: v + copied for k, v in before.items()}
+    want = tmm.int8_similarity_plain(q8, docs, qs, ds).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k5_operands_are_the_inputs_when_aligned():
+    q8 = torch.zeros(3, 48, dtype=torch.int8)
+    docs = torch.zeros(4, 48, dtype=torch.int8)
+    q, d, dp = tmm.int8_kernel_operands(q8, docs)
+    assert dp == 48 and q is q8 and d is docs
 
 
 def _nibbles_to_s8(x):
@@ -334,7 +398,7 @@ def _k6_emulated(q8, d_packed, qs, ds):
     q, d, hp = tmm.int4_kernel_operands(q8, d_packed)
     q, d = q.numpy().astype(np.int64), d.numpy()
     assert d.shape[1] == hp and q.shape[1] == 2 * hp
-    assert hp % tmm.PACKED_ALIGN == 0
+    assert hp % tmm.TMA_ALIGN == 0
     stages = -(-hp // 64)
     qz = np.zeros((q.shape[0], 2 * hp + 64), np.int64)
     qz[:, : 2 * hp] = q
@@ -365,7 +429,7 @@ def test_k6_operands_give_plain_result(half):
                 (rng.rand(n) / 7).astype(np.float32))
     before = dict(tmm.PAD_COPIES)
     got = _k6_emulated(q8, docs, qs, ds)
-    copied = int(half % tmm.PACKED_ALIGN != 0)
+    copied = int(half % tmm.TMA_ALIGN != 0)
     assert tmm.PAD_COPIES == {k: v + copied for k, v in before.items()}
     want = tmm.int4_similarity_plain(q8, docs, qs, ds).numpy()
     np.testing.assert_array_equal(got, want)
@@ -380,6 +444,56 @@ def test_k6_operands_are_the_inputs_when_aligned():
     flat = torch.zeros(8 + docs.numel(), dtype=torch.uint8)
     _, d, _ = tmm.int4_kernel_operands(q8, flat[8:].view(4, 32))
     assert d.data_ptr() % 16 == 0 and d.shape == (4, 32)
+
+
+# ----------------------------------------------------------------------
+# K8's walk (csrc/quantize.cu:dequantize_rows_kernel), modelled here
+# ----------------------------------------------------------------------
+
+K8_ROWS_PER_BLOCK = 8  # warps a block (kRowsPerBlock)
+K8_UNROLL = 8  # words a lane loads before it stores (kDequantUnroll)
+
+
+def _k8_walk(n, d, blocks):
+    """How many times the kernel writes each (row, column) of an (n, d)
+    output with ``blocks`` blocks, and the word ranges of its vector store
+    instructions: warp v of the grid's V warps takes rows v, v + V, ...;
+    with D % 4 == 0, lane l stores words l + 32 i (columns 4 w .. 4 w + 3)
+    in passes of K8_UNROLL words, else it stores columns l + 32 i."""
+    writes = np.zeros((n, d), np.int64)
+    stores = []
+    warps = blocks * K8_ROWS_PER_BLOCK
+    words = d // 4
+    for v in range(warps):
+        for row in range(v, n, warps):
+            if d % 4:
+                for lane in range(32):
+                    writes[row, lane::32] += 1
+                continue
+            for start in range(0, words, 32 * K8_UNROLL):
+                for u in range(K8_UNROLL):
+                    lanes = [start + 32 * u + lane for lane in range(32)]
+                    lanes = [w for w in lanes if w < words]
+                    for w in lanes:
+                        writes[row, 4 * w : 4 * w + 4] += 1
+                    if lanes:
+                        stores.append(lanes)
+    return writes, stores
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 200])
+@pytest.mark.parametrize("n,d", [(37, 776), (5, 3), (9, 1_028), (1, 4),
+                                 (17, 2_052), (40, 130)])
+def test_k8_walk_writes_every_element_once(n, d, blocks):
+    """Every element of ragged shapes is written exactly once, whatever
+    the grid (a warp walking several rows, or blocks with no row), and
+    each vector store instruction of a warp covers contiguous words: 512
+    contiguous bytes, or the row's guarded tail."""
+    writes, stores = _k8_walk(n, d, blocks)
+    np.testing.assert_array_equal(writes, np.ones((n, d), np.int64))
+    for lanes in stores:
+        assert lanes == list(range(lanes[0], lanes[0] + len(lanes)))
+        assert len(lanes) == 32 or lanes[-1] == d // 4 - 1
 
 
 def test_stochastic_quantize_unbiased(embeddings):
@@ -615,9 +729,9 @@ def test_quantize_operand_checks_refuse():
 # Kernels on the card
 # ----------------------------------------------------------------------
 
-# (B, N, D): ragged against the 128 x 128 tiles, 128-column chunks and
-# 16-byte loads (776 % 16 = 8 takes K5's byte-load path; K6's packed width
-# 388 is padded to 400), N = 129 off 4 (K6's plain stores).
+# (B, N, D): ragged against the 128 x 128 tiles, the stages and 16 bytes
+# (K5's width 776 is padded to 784, K6's packed width 388 to 400), N = 129
+# off 4 (plain stores).
 RAGGED = [(37, 1_000, 776), (130, 300, 768), (1, 129, 32)]
 
 
@@ -676,15 +790,49 @@ def test_int4_similarity_edges_on_card(cuda, b, n, d):
     want = tmm.int4_similarity_plain(*args)
     torch.cuda.synchronize()
     assert tmm.LAUNCHES["int4_similarity"] == before + 1
-    padded = int((d // 2) % tmm.PACKED_ALIGN != 0)
+    padded = int((d // 2) % tmm.TMA_ALIGN != 0)
+    assert tmm.PAD_COPIES == {k: v + padded for k, v in copies.items()}
+    assert torch.equal(got, want)
+
+
+# K5 (csrc/similarity_wgmma.cu, int8) at its edges, (B, N, D): a stage
+# takes 128 bytes a row (D below, at and off a stage; off 16 bytes the
+# wrapper pads), B and N off the 128 tiles, N off 4 (plain stores), N and
+# B large enough that each persistent block walks several tiles, and
+# widths of 1 to 16 stages.
+K5_EDGES = [
+    (5, 3, 1), (1, 1, 16), (64, 127, 24), (130, 129, 128), (1, 129, 100),
+    (257, 1_031, 200), (130, 1, 256), (64, 1_031, 776), (257, 127, 768),
+    (37, 300, 1_024), (130, 34_000, 768), (257, 33_795, 200),
+    (17_000, 200, 64), (37, 300, 1_040), (130, 1_031, 2_048),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", K5_EDGES)
+def test_int8_similarity_edges_on_card(cuda, b, n, d):
+    rng = np.random.RandomState(b * n + d)
+    q8 = _codes(rng, (b, d), False)
+    docs = _codes(rng, (n, d), False)
+    qs = (rng.rand(b) / 127).astype(np.float32)
+    ds = (rng.rand(n) / 7).astype(np.float32)
+    args = _t(q8, docs, qs, ds, device=cuda)
+    before = tmm.LAUNCHES["int8_similarity"]
+    copies = dict(tmm.PAD_COPIES)
+    got = tmm.int8_similarity(*args)
+    want = tmm.int8_similarity_plain(*args)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES["int8_similarity"] == before + 1
+    padded = int(d % tmm.TMA_ALIGN != 0)
     assert tmm.PAD_COPIES == {k: v + padded for k, v in copies.items()}
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 def test_similarity_wgmma_refuses_bad_operands(cuda):
-    """osr_similarity_i4 returns cudaErrorInvalidValue (1) and launches
-    nothing for a packed width off 16 bytes or a base off 16 bytes."""
+    """osr_similarity_i4 and osr_similarity_i8 return
+    cudaErrorInvalidValue (1) and launch nothing for an operand width off
+    16 bytes, a base off 16 bytes or a negative shape."""
     from osr_tpu_torch.ops import _build
 
     lib = _build.library("similarity_wgmma")
@@ -700,6 +848,18 @@ def test_similarity_wgmma_refuses_bad_operands(cuda):
     ) == 1
     assert lib.osr_similarity_i4(
         q.data_ptr(), d.data_ptr() + 8, *ptrs, 4, 8, 32, stream
+    ) == 1
+    assert lib.osr_similarity_i8(
+        q.data_ptr(), d.data_ptr(), *ptrs, 4, 8, 40, stream
+    ) == 1
+    assert lib.osr_similarity_i8(
+        q.data_ptr() + 8, d.data_ptr(), *ptrs, 4, 8, 32, stream
+    ) == 1
+    assert lib.osr_similarity_i8(
+        q.data_ptr(), d.data_ptr() + 8, *ptrs, 4, 8, 32, stream
+    ) == 1
+    assert lib.osr_similarity_i8(
+        q.data_ptr(), d.data_ptr(), *ptrs, -1, 8, 32, stream
     ) == 1
     torch.cuda.synchronize()
     assert torch.count_nonzero(out) == 0
@@ -719,3 +879,29 @@ def test_quantize_kernels_match_plain_on_card(cuda, stochastic, n, d):
     torch.cuda.synchronize()
     assert torch.equal(v, pv) and torch.equal(s, ps)
     assert torch.equal(back, tqk.dequantize_symmetric_plain(v, s))
+
+
+# K8's shapes: D % 16 != 0 on the vector path (776, 1,028: a row's last
+# pass guarded), D % 4 != 0 (the scalar path), a width of one word, and a
+# row longer than one pass of K8_UNROLL words a lane.
+K8_SHAPES = [(1_000, 776), (130, 768), (9, 1_028), (37, 3), (300, 1_027),
+             (5, 4), (17, 2_052)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", K8_SHAPES)
+def test_dequantize_kernel_matches_plain_on_card(cuda, n, d):
+    rng = np.random.RandomState(n * d)
+    values = rng.randint(-128, 128, (n, d)).astype(np.int8)
+    scales = (rng.rand(n) / 127).astype(np.float32)
+    v, s = _t(values, scales, device=cuda)
+    before = tqk.LAUNCHES["dequantize_symmetric"]
+    got = tqk.dequantize_symmetric(v, s)
+    # A view whose base is off 4 bytes takes the scalar path.
+    flat = torch.cat([torch.zeros(1, dtype=torch.int8, device=cuda),
+                      v.flatten()])
+    got_off = tqk.dequantize_symmetric(flat[1:].view(n, d), s)
+    torch.cuda.synchronize()
+    assert tqk.LAUNCHES["dequantize_symmetric"] == before + 2
+    want = tqk.dequantize_symmetric_plain(v, s)
+    assert torch.equal(got, want) and torch.equal(got_off, want)
