@@ -185,17 +185,16 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 2-D row-major tensor map: cols x rows elements of elem_bytes, a box of
-// box_cols x box_rows.
+// box_cols x 128 rows.
 bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                const void* base, int cols, int rows, int box_cols,
-               CUtensorMapSwizzle swizzle, int box_rows = 128) {
+               CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), 128};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

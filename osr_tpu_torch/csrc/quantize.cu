@@ -41,11 +41,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// K8's stores carry the streaming hint (st.global.cs) unless this is 0.
-#ifndef OSR_K8_STREAM_STORES
-#define OSR_K8_STREAM_STORES 1
-#endif
-
 namespace {
 
 constexpr int kThreads = 256;
@@ -133,17 +128,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Stores one f32 x 4 of K8's output, which is written once and never read
-// again: with the streaming hint (st.global.cs) unless
-// OSR_K8_STREAM_STORES is 0.
-__device__ __forceinline__ void store_out(float4* p, float4 v) {
-#if OSR_K8_STREAM_STORES
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
-
 // Code j (byte j, little-endian) of a word of 4 codes, as f32.
 __device__ __forceinline__ float code_of(uint32_t w, int j) {
   return static_cast<float>(static_cast<int32_t>(w << (24 - 8 * j)) >> 24);
@@ -156,7 +140,9 @@ __device__ __forceinline__ float code_of(uint32_t w, int j) {
 // words l + 32 i of the row, codes 4 (l + 32 i) .. + 3, one 32-bit load and
 // one f32 x 4 store each, so that a warp's store instruction writes 512
 // contiguous bytes; it loads kDequantUnroll words before it stores any
-// (the row's tail guarded). Otherwise lane l takes columns l + 32 i one by
+// (the row's tail guarded), and its stores carry the streaming hint
+// (st.global.cs: the output is written once and never read again).
+// Otherwise lane l takes columns l + 32 i one by
 // one.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -185,10 +171,10 @@ __global__ void __launch_bounds__(kThreads)
         for (int u = 0; u < kDequantUnroll; ++u) {
           const int i = i0 + 32 * u;
           if (i < words) {
-            store_out(orow + i, make_float4(__fmul_rn(code_of(w[u], 0), s),
-                                            __fmul_rn(code_of(w[u], 1), s),
-                                            __fmul_rn(code_of(w[u], 2), s),
-                                            __fmul_rn(code_of(w[u], 3), s)));
+            __stcs(orow + i, make_float4(__fmul_rn(code_of(w[u], 0), s),
+                                         __fmul_rn(code_of(w[u], 1), s),
+                                         __fmul_rn(code_of(w[u], 2), s),
+                                         __fmul_rn(code_of(w[u], 3), s)));
           }
         }
       }

@@ -44,9 +44,8 @@
 //   cp.async.bulk.tensor.2d, each guarded by a full and an empty mbarrier;
 //   it runs on into the next tile's stages while the consumers are in an
 //   epilogue. B, N and W off the tiles come from TMA's zero fill.
-//   - K5: a stage is kChunkBytes columns (OSR_K5_CHUNK_BYTES: 128, 128B
-//     swizzle, 5 stages; or 64, 64B swizzle, 10 stages) of the 128 queries
-//     and of the 128 corpus rows: 32 KB (16 KB).
+//   - K5: a stage is 128 columns of the 128 queries and of the 128 corpus
+//     rows, 16 KB each, 128B swizzle: 32 KB, 5 stages.
 //   - K6: a stage covers 128 logical columns: 64 packed bytes of the 128
 //     corpus rows (8 KB, raw) and two query tiles of 128 queries x 64
 //     bytes, columns [c, c + 64) and [W + c, W + c + 64): 24 KB, 64B
@@ -55,8 +54,8 @@
 // - wgmma m64n128k32 s8 x s8 -> s32, the corpus rows as A (M = docs) and
 //   the queries as B, both K-major, as TMA wrote them.
 //   - K5: A and B both from shared memory (the "ss" form; 8-bit wgmma
-//     takes K-major operands only), kChunkBytes / 32 k-steps a stage. No
-//     fragment registers.
+//     takes K-major operands only), 4 k-steps a stage. No fragment
+//     registers.
 //   - K6: A in registers, decoded from the raw tile. One 32-bit load of 4
 //     packed bytes gives a thread 4 low-nibble codes (a register of a low
 //     k-step) and 4 high-nibble codes (the same register of the matching
@@ -92,10 +91,10 @@
 // 64-doc halves in turn (slower: one warpgroup alone issues its dependent
 // products at well under the tensor rate), two accumulator sets per
 // warpgroup for K6 (ptxas caps a block of this size at 168 registers,
-// then spills and serializes), K5's 64-byte stages (slower) and 256-query
-// tiles (a quarter fewer L2 reads, no faster; both options above), and K5
-// as clusters of two blocks that multicast each query stage to both (half
-// the query reads, but much slower).
+// then spills and serializes), K5 with K6's 64-byte stages (slower) or
+// with 256-query tiles (m64n256k32: a quarter fewer L2 reads, no faster),
+// and K5 as clusters of two blocks that multicast each query stage to both
+// (half the query reads, but much slower).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -103,21 +102,9 @@
 
 #include "hopper.cuh"
 
-// K5's tile, kept selectable for osr_tpu_torch/kernel_variants.py, which
-// times the forms on the card (PERF.md, Findings): the stage width in bytes,
-// 128 (the default, the faster) or 64, and the queries per tile, 128 (the
-// default) or 256 (m64n256k32, 128 accumulators a thread; the epilogue
-// stores the tile in two halves). Each ring holds 160 KB at most.
-#ifndef OSR_K5_CHUNK_BYTES
-#define OSR_K5_CHUNK_BYTES 128
-#endif
-#ifndef OSR_K5_QUERIES
-#define OSR_K5_QUERIES 128
-#endif
-
 namespace {
 
-constexpr int kTileM = 128;       // queries per tile (K5: per tile half)
+constexpr int kTileM = 128;       // queries per tile
 constexpr int kTileN = 128;       // docs per tile
 constexpr int kConsumers = 256;   // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
@@ -128,31 +115,20 @@ constexpr int kOutBoxBytes = kTileM * kOutBoxCols * 4;
 constexpr int kStagingBytes = (kTileN / kOutBoxCols) * kOutBoxBytes;
 
 // Stage geometry of one corpus dtype. Stage s, from a 1024-byte aligned
-// base: the query box(es), then the corpus box, rows of kChunkBytes (K6:
-// the low and the high query box, then the raw corpus box, 128 rows each;
-// K5: kQueries query rows, then 128 corpus rows).
+// base: 128-row boxes of kChunkBytes a row. K6: the low and the high query
+// box, then the raw corpus box (64B swizzle); K5: the query box, then the
+// corpus box (128B swizzle).
 template <bool kInt4>
 struct Geometry {
-  static constexpr int kQueries = kInt4 ? kTileM : OSR_K5_QUERIES;
-  static constexpr int kChunkBytes = kInt4 ? 64 : OSR_K5_CHUNK_BYTES;
+  static constexpr int kChunkBytes = kInt4 ? 64 : 128;
   static constexpr int kBoxBytes = kTileM * kChunkBytes;
-  static constexpr int kQueryBytes = kQueries * kChunkBytes;  // K5's box
-  static constexpr int kStageBytes =
-      kInt4 ? 3 * kBoxBytes : kQueryBytes + kBoxBytes;
-  static constexpr int kStages = kInt4 ? 6 : 160 * 1024 / kStageBytes;
+  static constexpr int kStageBytes = (kInt4 ? 3 : 2) * kBoxBytes;
+  static constexpr int kStages = kInt4 ? 6 : 5;
   static constexpr int kSmemBytes =
       kStages * kStageBytes + kStagingBytes + 1024;
   static constexpr CUtensorMapSwizzle kSwizzle =
-      kChunkBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B;
-  static_assert(kChunkBytes == 64 || kChunkBytes == 128,
-                "a stage is 64 or 128 bytes a row");
+      kInt4 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
 };
-
-template <int kRowBytes>
-__device__ __forceinline__ uint64_t kmajor_desc(const void* tile) {
-  return kRowBytes == 128 ? sw128_desc(tile) : sw64_desc(tile);
-}
 
 // d (64 x 128, s32, this thread's 64 values) = a (64 x 32 s8, this
 // thread's fragment in registers) * b (32 x 128 s8, shared memory) +
@@ -213,54 +189,6 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int* d, uint64_t da,
         "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// The same with 256 queries: d (64 x 256, s32, this thread's 128 values).
-__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(int* d, uint64_t da,
-                                                       uint64_t db,
-                                                       int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
-        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
-        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
-        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
-        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
-        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
-        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
-        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
-        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
-        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
-        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -345,20 +273,15 @@ __device__ __forceinline__ void consume_stage(int it, int k, uint8_t* smem,
     wgmma_m64n128k32_s8_rs(acc, a[2], b_hi, 1);
     wgmma_m64n128k32_s8_rs(acc, a[3], b_hi + 2, 1);
   } else {
-    constexpr int kRow = Geo::kChunkBytes;
+    // This warpgroup's 64 corpus rows as A, the 128 queries as B; a k32
+    // step of the 128-byte row adds 2 to the address field.
     const uint64_t da =
-        kmajor_desc<kRow>(stage + Geo::kQueryBytes + wg * 64 * kRow);
-    const uint64_t db = kmajor_desc<kRow>(stage);
+        sw128_desc(stage + Geo::kBoxBytes + wg * 64 * Geo::kChunkBytes);
+    const uint64_t db = sw128_desc(stage);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kRow / 32; ++kk) {
-      if constexpr (Geo::kQueries == 256) {
-        wgmma_m64n256k32_s8_ss(acc, da + 2 * kk, db + 2 * kk,
-                               k > 0 || kk > 0);
-      } else {
-        wgmma_m64n128k32_s8_ss(acc, da + 2 * kk, db + 2 * kk,
-                               k > 0 || kk > 0);
-      }
+    for (int kk = 0; kk < Geo::kChunkBytes / 32; ++kk) {
+      wgmma_m64n128k32_s8_ss(acc, da + 2 * kk, db + 2 * kk, k > 0 || kk > 0);
     }
   }
   wgmma_commit();
@@ -380,11 +303,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                             float* __restrict__ out, int B, int N, int W,
                             int n_qtiles, int n_tiles) {
   using Geo = Geometry<kInt4>;
-  constexpr int kQ = Geo::kQueries;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[Geo::kStages];
   __shared__ __align__(8) uint64_t empty_bar[Geo::kStages];
-  __shared__ __align__(16) float s_qs[kQ];
+  __shared__ __align__(16) float s_qs[kTileM];
   __shared__ float s_ds[kTileN];
   // Offset, not cast, to the aligned base: the compiler then still knows
   // the pointer is shared memory.
@@ -409,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tid == kConsumers) {
       int it = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int m0 = (tile % n_qtiles) * kQ;
+        const int m0 = (tile % n_qtiles) * kTileM;
         const int n0 = (tile / n_qtiles) * kTileN;
         for (int k = 0; k < n_chunks; ++k, ++it) {
           const int s = it % Geo::kStages;
@@ -424,8 +346,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             tma_load_2d(stage + Geo::kBoxBytes, &tq, &full_bar[s], W + c,
                         m0);
           }
-          tma_load_2d(stage + (kInt4 ? 2 * Geo::kBoxBytes : Geo::kQueryBytes),
-                      &td, &full_bar[s], c, n0);
+          tma_load_2d(stage + (kInt4 ? 2 : 1) * Geo::kBoxBytes, &td,
+                      &full_bar[s], c, n0);
         }
       }
     }
@@ -441,20 +363,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int row0 = 64 * wg + 16 * w + g;  // this thread's docs: +0, +8
-  int acc[kQ / 2];
+  int acc[64];
   uint32_t frag[2][4][4];  // K6's A fragments, double buffered
 
   int base = 0;  // the block's running stage count at this tile's start
   for (int tile = blockIdx.x; tile < n_tiles;
        tile += gridDim.x, base += n_chunks) {
-    const int m0 = (tile % n_qtiles) * kQ;
+    const int m0 = (tile % n_qtiles) * kTileM;
     const int n0 = (tile / n_qtiles) * kTileN;
-    // This thread's scales for the epilogue (query m0 + tid, and/or doc n0
-    // + di), loaded now so that their latency hides under the main loop.
-    const int di = kQ == kTileM ? tid - kTileM : tid;
-    const float qscale = tid < kQ && m0 + tid < B ? qs[m0 + tid] : 0.0f;
-    const float dscale =
-        di >= 0 && di < kTileN && n0 + di < N ? ds[n0 + di] : 0.0f;
+    // This thread's scale for the epilogue (query m0 + tid, or doc n0 +
+    // tid - 128), loaded now so that its latency hides under the main loop.
+    const int si = tid < kTileM ? m0 + tid : n0 + tid - kTileM;
+    const float scale = tid < kTileM ? (si < B ? qs[si] : 0.0f)
+                                     : (si < N ? ds[si] : 0.0f);
     int k = 0;
     for (; k + 1 < n_chunks; k += 2) {  // two stages, one per buffer
       consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
@@ -473,68 +394,65 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // Epilogue. The scales of this tile's queries and docs go to shared
     // memory (the previous epilogue's reads of them ended before its
-    // last barrier). Then each 128 queries of the tile in turn: the
-    // staging tile is free once the previous store has read it (TMA) or
-    // every warp has stored it (plain).
-    if (tid < kQ) s_qs[tid] = qscale;
-    if (di >= 0 && di < kTileN) s_ds[di] = dscale;
+    // second barrier). The staging tile is free once the previous tile's
+    // store has read it (TMA) or every warp has stored it (plain).
+    if (tid < kTileM) {
+      s_qs[tid] = scale;
+    } else {
+      s_ds[tid - kTileM] = scale;
+    }
+    if (kTmaStore && tid == 0) bulk_wait_read<0>();
+    consumer_barrier();
+    // acc[4 j + 2 h + e] is (doc row0 + 8 h, query 8 j + 2 t + e): box
+    // doc / 32, row query, 16-byte chunk ((doc % 32) / 4) ^ (query & 7).
+    const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
 #pragma unroll
-    for (int hq = 0; hq < kQ / kTileM; ++hq) {
-      const int mh = m0 + kTileM * hq;
-      if (kTmaStore && tid == 0) bulk_wait_read<0>();
-      consumer_barrier();
-      // acc[4 (16 hq + j) + 2 h + e] is (doc row0 + 8 h, query 128 hq + 8 j
-      // + 2 t + e): box doc / 32, row query % 128, 16-byte chunk ((doc %
-      // 32) / 4) ^ (query & 7).
-      const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
+    for (int j = 0; j < 16; ++j) {
+      const float2 q2 =
+          *reinterpret_cast<const float2*>(&s_qs[8 * j + 2 * t]);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 q2 = *reinterpret_cast<const float2*>(
-            &s_qs[kTileM * hq + 8 * j + 2 * t]);
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int doc = row0 + 8 * h;
-            const int ql = 8 * j + 2 * t + e;
-            const float v = __fmul_rn(
-                __fmul_rn(__int2float_rn(acc[4 * (16 * hq + j) + 2 * h + e]),
-                          e ? q2.y : q2.x),
-                dsc[h]);
-            *reinterpret_cast<float*>(
-                staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
-                ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
-          }
-      }
-      if constexpr (kTmaStore) fence_proxy_async();
-      consumer_barrier();
-      if constexpr (kTmaStore) {
-        if (tid == 0 && mh < B) {
-#pragma unroll
-          for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
-            if (n0 + kOutBoxCols * i < N) {
-              tma_store_2d(&to, staging + i * kOutBoxBytes,
-                           n0 + kOutBoxCols * i, mh);
-            }
-          }
-          bulk_commit();
+        for (int e = 0; e < 2; ++e) {
+          const int doc = row0 + 8 * h;
+          const int ql = 8 * j + 2 * t + e;
+          const float v = __fmul_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
+                        e ? q2.y : q2.x),
+              dsc[h]);
+          *reinterpret_cast<float*>(
+              staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
+              ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
         }
-      } else {
-        // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of
-        // box x (conflict free) and writes it: 128 contiguous bytes a box.
-        const int wp = tid >> 5;
-        for (int i = 0; i < kTileM / 8; ++i) {
-          const int ql = wp + 8 * i;
-          const int mq = mh + ql;
-          if (mq >= B) break;
+    }
+    if constexpr (kTmaStore) fence_proxy_async();
+    consumer_barrier();
+    if constexpr (kTmaStore) {
+      if (tid == 0) {
 #pragma unroll
-          for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
-            const int n = n0 + kOutBoxCols * x + lane;
-            const float v = *reinterpret_cast<const float*>(
-                staging + x * kOutBoxBytes + ql * 128 +
-                (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
-            if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
+        for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
+          if (n0 + kOutBoxCols * i < N) {
+            tma_store_2d(&to, staging + i * kOutBoxBytes,
+                         n0 + kOutBoxCols * i, m0);
           }
+        }
+        bulk_commit();
+      }
+    } else {
+      // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of box
+      // x (conflict free) and writes it: 128 contiguous bytes a box.
+      const int wp = tid >> 5;
+      for (int i = 0; i < kTileM / 8; ++i) {
+        const int ql = wp + 8 * i;
+        const int mq = m0 + ql;
+        if (mq >= B) break;
+#pragma unroll
+        for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
+          const int n = n0 + kOutBoxCols * x + lane;
+          const float v = *reinterpret_cast<const float*>(
+              staging + x * kOutBoxBytes + ql * 128 +
+              (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
+          if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
         }
       }
     }
@@ -546,15 +464,14 @@ template <bool kInt4, bool kTmaStore>
 int launch(const void* q, const void* d, const void* qs, const void* ds,
            void* out, int B, int N, int W, cudaStream_t stream) {
   using Geo = Geometry<kInt4>;
-  const int n_qtiles = (B + Geo::kQueries - 1) / Geo::kQueries;
+  const int n_qtiles = (B + kTileM - 1) / kTileM;
   const int n_ntiles = (N + kTileN - 1) / kTileN;
   const long long tiles = static_cast<long long>(n_qtiles) * n_ntiles;
   if (tiles == 0) return 0;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, td, to;
   if (!encode_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q,
-                 kInt4 ? 2 * W : W, B, Geo::kChunkBytes, Geo::kSwizzle,
-                 Geo::kQueries) ||
+                 kInt4 ? 2 * W : W, B, Geo::kChunkBytes, Geo::kSwizzle) ||
       !encode_2d(&td, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, d, W, N,
                  Geo::kChunkBytes, Geo::kSwizzle)) {
     return static_cast<int>(cudaErrorInvalidValue);

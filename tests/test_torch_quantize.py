@@ -21,6 +21,9 @@ On the card they run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_quantize.py``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -303,7 +306,7 @@ def test_plain_int4_similarity_matches_pallas_interpret(jax_ref, n, b, d):
 # emulated here
 # ----------------------------------------------------------------------
 
-K5_STAGE = 128  # bytes of a row a K5 stage loads (OSR_K5_CHUNK_BYTES)
+K5_STAGE = 128  # bytes of a row a K5 stage loads (Geometry<false>::kChunkBytes)
 
 
 def _k5_emulated(q8, d8, qs, ds):
@@ -450,8 +453,22 @@ def test_k6_operands_are_the_inputs_when_aligned():
 # K8's walk (csrc/quantize.cu:dequantize_rows_kernel), modelled here
 # ----------------------------------------------------------------------
 
-K8_ROWS_PER_BLOCK = 8  # warps a block (kRowsPerBlock)
-K8_UNROLL = 8  # words a lane loads before it stores (kDequantUnroll)
+def _csrc_int_constants(source):
+    """The file-scope ``constexpr int name = expr;`` constants of
+    osr_tpu_torch/csrc/<source>, each expression (integers, earlier names,
+    ``*``, ``/``, ``+``, ``-``) evaluated with C's integer division."""
+    path = Path(tmm.__file__).resolve().parents[1] / "csrc" / source
+    env = {}
+    for name, expr in re.findall(
+        r"^constexpr int (\w+) = ([\w\s*/+-]+);", path.read_text(), re.M
+    ):
+        env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return env
+
+
+_K8_CONSTANTS = _csrc_int_constants("quantize.cu")
+K8_ROWS_PER_BLOCK = _K8_CONSTANTS["kRowsPerBlock"]  # warps a block
+K8_UNROLL = _K8_CONSTANTS["kDequantUnroll"]  # words a lane loads first
 
 
 def _k8_walk(n, d, blocks):
