@@ -43,7 +43,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. the device step per batch (CUDA events; standard at top_k 50 and 1000,
    and extraction), main-path QPS (median of 5 passes), one batch timed stage
    by stage, and p50 single-query latency;
-6. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
+6. the retrieval surface on the same corpus and queries, through
+   RetrieverRegistry.create with osr_tpu/configs/prose_87k.yaml's two
+   retriever blocks on cuda: the bm25 retriever at top_k=100 (K2) must
+   equal SparseSearchEngine(device="cuda") dict for dict; the hybrid
+   (hashing_idf encoder with its native backend, dim 768, RRF 1.0/1.0,
+   fusion depth 100) over every query must launch K2, K7 and K5, its array
+   path must equal the dict oracle (_search_dicts) on 256 queries, its
+   dense leg the backend='torch' engine bit for bit, and after
+   set_fusion(weighted, 0.3/0.7) the oracle again; the splade route over
+   seeded learned vectors (K2) must match a head_backend='torch' engine
+   under the merge check; RetrievalService over the 57,638 stored docs must
+   give the bm25 retriever's results and each hit's stored text. Prints the
+   encoder's fit + encode time, QPS (median of 3) of the hybrid, the bm25
+   retriever and the hybrid's dense leg alone, one hybrid batch stage by
+   stage, and the device step share of a hybrid pass;
+7. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
    400,000-term vocabulary, int8 head F=2,048, 2,048 queries at top_k=50,
    B=2,048, through three engines: (x) extraction in 2 row chunks of
    500,096 (K4), (s) the standard chunked program (K2), (f) one unchunked
@@ -52,7 +67,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    slack check; QPS (median of 3), device step per batch, the stage split,
    and K4 at one chunk against its bound, plain twin and a cuBLAS +
    torch.topk yardstick;
-7. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
+8. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
    1,024 at top_k=50, launches counted; the corpus codes equal the plain
@@ -61,13 +76,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    self-hit rate; each kernel against its plain version at the path's
    shapes (error 0) with its times; the dense device
    step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
-8. drive the quantization round trip (quantize, dequantize; deterministic
+9. drive the quantization round trip (quantize, dequantize; deterministic
    and stochastic, as benchmarks/suites.py's quantization suite does) on
    the 1M corpus, counting K7 and K8, and time K7 and K8 there; then dense
    QPS at bench.py's own dense shape (the bench corpus size x 768,
    B=4,096), for reference.
 
-Prints the card's name and power limit, a JSON line of per-kernel numbers,
+Prints the card's name and power limit, a JSON line of per-kernel numbers
+(with ``surface_launches``, phase 6's launches, on K2's, K7's and K5's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 """
@@ -76,7 +92,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -876,7 +894,7 @@ def fiqa_plans(index, base, queries, dtype):
 
 
 def million_path(dev):
-    """Phase 6. Returns K4-i8's record, its launches from the (x) run."""
+    """Phase 7. Returns K4-i8's record, its launches from the (x) run."""
     from osr_tpu_torch.index.builder import SparseIndexBuilder
     from osr_tpu_torch.ops import head as H
     from osr_tpu_torch.retrieval.engine import SparseSearchEngine
@@ -1006,6 +1024,354 @@ def million_path(dev):
     del eng, index, head, scales, qhead, valid, ids, w
     torch.cuda.empty_cache()
     return row
+
+
+# ----------------------------------------------------------------------
+# The retrieval surface: registry, hybrid fusion, learned sparse, service
+# ----------------------------------------------------------------------
+
+# osr_tpu/configs/prose_87k.yaml's two retriever blocks, on the card.
+BM25_CONFIG = {"type": "bm25", "params": {
+    "top_k": 100, "k1": 1.2, "b": 0.75, "cache_matrices": False,
+    "device": "cuda"}}
+HYBRID_CONFIG = {"type": "hybrid", "params": {
+    "top_k": 100, "cache_matrices": False, "encoder": "hashing_idf",
+    "fusion": "rrf", "sparse_weight": 1.0, "dense_weight": 1.0,
+    "device": "cuda"}}
+SURFACE_TOP_K = 100
+SURFACE_KERNELS = ("head_blockmax_i8", "quantize_symmetric",
+                   "int8_similarity")
+
+
+def fused_equal(fast, full, top_k, rtol, atol, tie):
+    """The array path's fused rows against the dict oracle's full fused
+    lists (``_search_dicts`` at a depth that keeps every candidate): the
+    same score sequence as the oracle's top ``top_k`` within rtol/atol,
+    each id's own oracle score within them, and the oracle's ids in its
+    order except inside ties (a neighbour within ``tie``, where the two
+    paths may order or choose differently)."""
+    for qid, f in fast.items():
+        w = full[qid]
+        ws = np.array(list(w.values()))
+        fs = np.array(list(f.values()))
+        if len(fs) != min(top_k, len(ws)) or not np.allclose(
+            fs, ws[: len(fs)], rtol=rtol, atol=atol
+        ):
+            return False
+        if any(d not in w or not np.isclose(s, w[d], rtol=rtol, atol=atol)
+               for d, s in f.items()):
+            return False
+        for i, (a, b) in enumerate(zip(f, w)):
+            if a != b and not any(
+                abs(ws[i] - ws[j]) <= tie
+                for j in (i - 1, i + 1) if 0 <= j < len(ws)
+            ):
+                return False
+    return True
+
+
+def hybrid_oracle_check(hy, sub, label, rtol, atol, tie):
+    fast = hy.search(sub, top_k=SURFACE_TOP_K)
+    full = hy._search_dicts(sub, top_k=2 * hy.fusion_depth)
+    if not fused_equal(fast, full, SURFACE_TOP_K, rtol, atol, tie):
+        fail(f"hybrid {label}: the array path differs from _search_dicts")
+    log(f"hybrid {label}: {len(sub)} queries, the array path equals "
+        f"_search_dicts (ids up to ties within {tie:g}, scores within rtol "
+        f"{rtol:g} atol {atol:g})")
+
+
+def hybrid_stages(hy, texts, top_k):
+    """Wall time (ms) of each stage of one hybrid batch, run one after
+    another (inside search() the dense step rides the device while the
+    sparse host stages run)."""
+    from osr_tpu_torch.retrieval.fusion import (
+        fuse_topk_arrays,
+        fused_rows_to_results,
+    )
+
+    sp, de, depth = hy.sparse.engine, hy.dense.engine, hy.fusion_depth
+    ms = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        ms[name] = (now - t) * 1e3
+        t = now
+
+    vecs = hy.dense.embed_queries(texts)
+    lap("embed")
+    d_handle = de.dispatch_vectors(vecs, depth)
+    lap("dense_dispatch")
+    s_handle = sp.search_encoded_device(sp.encode_queries(texts), depth)
+    lap("sparse_encode_dispatch")
+    s_scores, s_ids = sp.finish_batch(s_handle, depth)
+    lap("sparse_finish")
+    d_scores, d_ids = de.collect_vectors(d_handle)
+    lap("dense_collect")
+    n = len(texts)
+    f_sc, f_ids = fuse_topk_arrays(
+        s_scores[:n], s_ids[:n], d_scores, d_ids, hy.sparse_weight,
+        hy.dense_weight, top_k, mode=hy.fusion, rrf_k=hy.rrf_k,
+    )
+    lap("fusion")
+    fused_rows_to_results(list(range(n)), f_sc, f_ids, sp._doc_names)
+    lap("result_dicts")
+    return ms
+
+
+def dense_leg_pass(hy, texts):
+    """The hybrid's dense leg alone over ``texts``: embed, dispatch and
+    collect in the sparse engine's largest batch, two batches in flight."""
+    from osr_tpu_torch.retrieval.pipeline_util import run_pipelined
+
+    de, depth = hy.dense.engine, hy.fusion_depth
+    run_pipelined(
+        texts, hy.sparse.engine.batch_sizes[-1],
+        lambda chunk: de.dispatch_vectors(hy.dense.embed_queries(chunk),
+                                          depth),
+        lambda chunk, handle: de.collect_vectors(handle),
+        depth=2,
+    )
+
+
+def qps_passes(fn, n, before=None):
+    passes = []
+    for _ in range(3):
+        if before is not None:
+            before()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        passes.append(n / (time.perf_counter() - t0))
+    return float(np.median(passes)), [round(p, 1) for p in passes]
+
+
+def learned_vectors_file(corpus, path):
+    """Seeded (term, weight) vectors over each doc's own terms (NumPy,
+    seed 11), written as an npz for the splade route's vectors_path."""
+    from osr_tpu_torch.index.builder import SparseIndexBuilder
+
+    doc_ids = list(corpus)
+    counted = SparseIndexBuilder._count_corpus_native(
+        [corpus[d]["text"] for d in doc_ids]
+    )
+    if counted is None:
+        fail("the splade vectors need the native runtime")
+    vocabulary, _, _, indptr, term_ids, _ = counted
+    terms = [""] * len(vocabulary)
+    for t, i in vocabulary.items():
+        terms[i] = t
+    weights = np.random.RandomState(11).gamma(
+        2.0, 0.7, size=len(term_ids)
+    ).astype(np.float32)
+    np.savez(path, doc_ids_json=json.dumps(doc_ids),
+             vocab_json=json.dumps(terms), indptr=indptr, term_ids=term_ids,
+             weights=weights)
+    return len(term_ids)
+
+
+def retrieval_surface(corpus, queries, scratch):
+    """Phase 6: the retrieval surface at FiQA scale through the entry
+    points a user calls. Returns the hybrid pass's launches of K2, K7 and
+    K5."""
+    from osr_tpu_torch import (
+        Document,
+        RetrievalService,
+        RetrieverRegistry,
+    )
+    from osr_tpu_torch.ops.bm25 import fused_search
+    from osr_tpu_torch.retrieval.engine import (
+        DenseSearchEngine,
+        SparseSearchEngine,
+        dense_kernel_step,
+    )
+
+    k = SURFACE_TOP_K
+    items = list(queries.items())
+    sub = dict(items[:MERGE_QUERIES])
+    texts = [t for _, t in items]
+
+    # bm25, from prose_87k.yaml's block.
+    t0 = time.perf_counter()
+    bm25 = RetrieverRegistry.create(BM25_CONFIG)
+    bm25.build_index_from_corpus(corpus)
+    log(f"bm25 retriever built in {time.perf_counter() - t0:.1f} s "
+        f"(head backend {bm25.engine.head_backend})")
+    if bm25.engine.head_backend != "cuda":
+        fail("the bm25 retriever does not take the CUDA kernels")
+    reset_all_launches()
+    bm25_res = bm25.search(queries, top_k=k)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    check_results(bm25_res, queries, k)
+    if counts["head_blockmax_i8"] == 0:
+        fail("the bm25 retriever launched no head_blockmax_i8")
+    plain = SparseSearchEngine(bm25.index, device="cuda")
+    if plain.search(queries, top_k=k) != bm25_res:
+        fail("the bm25 retriever differs from SparseSearchEngine")
+    log(f"bm25 retriever: {len(queries)} queries at top_k={k} equal "
+        "SparseSearchEngine(device='cuda')'s dict for dict; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    del plain
+
+    # The hybrid, from prose_87k.yaml's hybrid_rrf_idf block.
+    hy = RetrieverRegistry.create(HYBRID_CONFIG)
+    encoder = hy.dense.embedding_fn.__self__
+    if encoder._nb is None:
+        fail("the HashingEncoder has no native backend")
+    encode_s = []
+
+    def timed_encode(docs):
+        t = time.perf_counter()
+        out = encoder.encode(docs)
+        encode_s.append(time.perf_counter() - t)
+        return out
+
+    hy.dense.embedding_fn = timed_encode
+    t0 = time.perf_counter()
+    hy.build_index_from_corpus(corpus)
+    torch.cuda.synchronize()
+    log(f"hybrid built in {time.perf_counter() - t0:.1f} s; HashingEncoder "
+        f"(dim {encoder.dim}, idf, native) fit + encode of "
+        f"{len(corpus)} docs {encode_s[0]:.2f} s")
+    if hy.sparse.engine.head_backend != "cuda" or hy.dense.engine.backend != (
+        "cuda"
+    ):
+        fail("the hybrid's engines do not take the CUDA kernels")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    fused = hy.search(queries, top_k=k)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = all_launches()
+    check_results(fused, queries, k)
+    surface = {n: counts[n] for n in SURFACE_KERNELS}
+    log(f"hybrid rrf: {len(queries)} queries at top_k={k} in {secs:.2f} s; "
+        f"launches {surface}")
+    for n, c in surface.items():
+        if c == 0:
+            fail(f"the hybrid launched no {n}")
+    hybrid_oracle_check(hy, sub, "rrf", 1e-6, 0.0, 1e-7)
+
+    de = hy.dense.engine
+    vecs = hy.dense.embed_queries(list(sub.values()))
+    torch_eng = DenseSearchEngine.from_quantized(
+        de.doc_ids, de._docs, de._scales, device="cuda", backend="torch"
+    )
+    got, want = de.search_vectors(vecs, k), torch_eng.search_vectors(vecs, k)
+    if not (np.array_equal(got[1], want[1])
+            and np.array_equal(got[0], want[0])):
+        fail("the hybrid's dense leg and the backend='torch' engine disagree")
+    log(f"hybrid dense leg: {len(sub)} queries give the backend='torch' "
+        "engine's ids and bit-equal scores")
+    del torch_eng
+
+    qps, passes = qps_passes(lambda: hy.search(queries, top_k=k), len(texts))
+    log(f"hybrid rrf QPS (top_k={k}, depth {hy.fusion_depth}, B="
+        f"{hy.sparse.engine.batch_sizes[-1]}, median of 3): {qps:.1f}; "
+        f"passes {passes}")
+    b_qps, b_passes = qps_passes(
+        lambda: bm25.search(queries, top_k=k), len(texts),
+        before=bm25.clear_cache,
+    )
+    log(f"bm25 retriever QPS (top_k={k}, query cache cleared before each "
+        f"pass, median of 3): {b_qps:.1f}; passes {b_passes}")
+    d_qps, d_passes = qps_passes(lambda: dense_leg_pass(hy, texts),
+                                 len(texts))
+    log(f"hybrid dense leg alone QPS (embed, K7 + K5 + selection, depth "
+        f"{hy.fusion_depth}, median of 3): {d_qps:.1f}; passes {d_passes}")
+    batch = texts[: hy.sparse.engine.batch_sizes[-1]]
+    runs = [hybrid_stages(hy, batch, k) for _ in range(3)]
+    stages = {s: float(np.median([r[s] for r in runs])) for s in runs[0]}
+    log(f"one hybrid batch stage by stage (B={len(batch)}, top_k={k}, ms, "
+        f"median of 3): "
+        f"{json.dumps({s: round(v, 3) for s, v in stages.items()})}; sum "
+        f"{sum(stages.values()):.3f}")
+    sp = hy.sparse.engine
+    enc = sp.encode_queries(batch)
+    ids, w = sp._upload(enc.head_ids), sp._upload(enc.head_weights)
+    d = sp._dev
+    sparse_ms = median_ms(
+        lambda: fused_search(
+            ids, w, d.empty_i32, d.empty_i32, d.head, d.head_scales, d.valid,
+            head_terms=sp.index.layout.head_terms, k=hy.fusion_depth,
+            head_backend=sp.head_backend,
+        ),
+        reps=10,
+    )
+    q = torch.from_numpy(hy.dense.embed_queries(batch)).to(de.device)
+    dense_ms = median_ms(
+        lambda: dense_kernel_step(q, de._docs, de._scales, hy.fusion_depth),
+        reps=10,
+    )
+    n_batches = -(-len(texts) // len(batch))
+    share = n_batches * (sparse_ms + dense_ms) / (len(texts) / qps * 1e3)
+    log(f"hybrid device steps per batch of {len(batch)}: sparse (K2 + "
+        f"selection) {sparse_ms:.4f} ms, dense (K7 + K5 + selection) "
+        f"{dense_ms:.4f} ms; device step share of a hybrid pass {share:.3f}")
+    hy.set_fusion(fusion="weighted", sparse_weight=0.3, dense_weight=0.7)
+    hybrid_oracle_check(hy, sub, "weighted 0.3/0.7 (set_fusion, no rebuild)",
+                        0.0, 1e-5, 2e-5)
+    del hy, q, ids, w, d, sp, de
+
+    # splade with learned vectors; queries fall back to their own tokens.
+    path = scratch / "splade_vectors.npz"
+    nnz = learned_vectors_file(corpus, path)
+    lr = RetrieverRegistry.create(
+        {"type": "splade", "params": {"vectors_path": str(path),
+                                      "device": "cuda"}}
+    )
+    lr.build_index_from_corpus(corpus)
+    reset_all_launches()
+    l_res = lr.search(queries, top_k=k)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    check_results(l_res, queries, k)
+    if counts["head_blockmax_i8"] == 0:
+        fail("the splade retriever launched no head_blockmax_i8")
+    plain = SparseSearchEngine(lr.index, device="cuda", head_backend="torch")
+    want = plain.search_weighted(
+        {q: lr._query_vec(q, t) for q, t in sub.items()}, top_k=k
+    )
+    if not same_results(lr.search(sub, top_k=k), want):
+        fail("the splade retriever and the plain engine disagree")
+    n = merge_check(lr.engine, plain, queries)
+    log(f"splade (learned vectors, {nnz} (doc, term) weights, seed 11): "
+        f"launches { {c: v for c, v in counts.items() if v} }; {len(sub)} "
+        f"queries match the head_backend='torch' engine; {n} candidates "
+        "within merge_tau_slack")
+    del lr, plain
+
+    # RetrievalService over the same documents.
+    with RetrievalService(scratch / "corpus.osrd", create=True,
+                          device="cuda") as svc:
+        t0 = time.perf_counter()
+        svc.add_documents(
+            [Document(id=d, text=r["text"], title=r["title"])
+             for d, r in corpus.items()]
+        )
+        store_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        svc.build_bm25_index()
+        build_s = time.perf_counter() - t0
+        hits = svc.search_bm25(sub, top_k=k)
+        if hits != {q: bm25_res[q] for q in sub}:
+            fail("RetrievalService.search_bm25 differs from the bm25 "
+                 "retriever")
+        for qid in list(sub)[:32]:
+            joined = svc.get_search_results(hits[qid])
+            if [r["text"] for r in joined] != [
+                corpus[doc]["text"] for doc in hits[qid]
+            ]:
+                fail("get_search_results does not return the stored text")
+        log(f"RetrievalService: {len(corpus)} docs stored in {store_s:.1f} "
+            f"s, BM25 index from the store in {build_s:.1f} s; "
+            f"search_bm25 on {len(sub)} queries equals the bm25 "
+            "retriever's; get_search_results returns each hit's text")
+    del bm25
+    torch.cuda.empty_cache()
+    return surface
 
 
 # ----------------------------------------------------------------------
@@ -1433,7 +1799,7 @@ def quantization_round_trip(emb):
 
 
 def dense_phases(dev, bench_docs):
-    """Phases 6 and 7; returns the dense kernels' records."""
+    """Phases 8 and 9; returns the dense kernels' records."""
     from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
     from osr_tpu_torch.retrieval.engine import DenseSearchEngine
 
@@ -1530,7 +1896,6 @@ def main():
     )
     index8 = SparseIndexBuilder(head_dtype="int8").build(corpus)
     index4 = SparseIndexBuilder(head_dtype="int4").build(corpus)
-    del corpus
     log(
         f"indexes built in {time.perf_counter() - t0:.1f} s: "
         f"{index8.stats()['num_rows']} rows, F={index8.layout.head_terms}, "
@@ -1677,10 +2042,19 @@ def main():
     torch.cuda.empty_cache()
     log(f"sparse phases done at {time.perf_counter() - t_start:.1f} s")
 
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as scratch:
+        surface = retrieval_surface(corpus, queries, Path(scratch))
+    del corpus
+    torch.cuda.empty_cache()
+    log(f"retrieval surface done at {time.perf_counter() - t_start:.1f} s")
+
     rows.append(million_path(dev))
     log(f"1M path done at {time.perf_counter() - t_start:.1f} s")
 
     rows += dense_phases(dev, bench_docs)
+    for r in rows:
+        if r["name"] in surface:
+            r["surface_launches"] = surface[r["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -6,6 +6,10 @@ kernels (``csrc/``) and the postings tail and exact merge on the host
 (``index/postings.py`` and the shared C++ runtime in ``native/``); and
 quantized dense retrieval (``DenseSearchEngine``), whose query
 quantization and int8/int4 similarity are hand-written CUDA kernels too.
+Above the engines: the config-driven ``RetrieverRegistry`` (sparse, dense,
+learned-sparse and hybrid retrievers, weighted or RRF fusion), the
+``HashingEncoder``, the index cache, the ``DocumentStore`` and the
+``RetrievalService`` facade.
 
 Module names follow ``osr_tpu`` so each part has an obvious counterpart.
 This package imports neither JAX nor ``osr_tpu``. Exports are lazy: ``import
@@ -19,6 +23,12 @@ import importlib
 
 _EXPORTS = {
     "DenseSearchEngine": "osr_tpu_torch.retrieval.engine",
+    "Document": "osr_tpu_torch.storage.documents",
+    "DocumentStore": "osr_tpu_torch.storage.doc_store",
+    "HashingEncoder": "osr_tpu_torch.encoders",
+    "HybridRetriever": "osr_tpu_torch.retrieval.registry",
+    "RetrievalService": "osr_tpu_torch.retrieval.service",
+    "RetrieverRegistry": "osr_tpu_torch.retrieval.registry",
     "SparseIndex": "osr_tpu_torch.index.builder",
     "SparseIndexBuilder": "osr_tpu_torch.index.builder",
     "SparseSearchEngine": "osr_tpu_torch.retrieval.engine",

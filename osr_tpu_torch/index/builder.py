@@ -17,6 +17,7 @@ to ``osr_tpu``'s builder, with the shared C++ runtime and without it.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import time
 from collections import Counter
@@ -80,6 +81,11 @@ class SparseIndex:
     avgdl: float
     k1: float
     b: float
+    # The IDF-free term matrix, kept when the builder is asked to
+    # (keep_raw_rows): what index/cache.py re-weights on a parameter change.
+    raw_indptr: Optional[np.ndarray] = None  # (N+1,) int64
+    raw_term_ids: Optional[np.ndarray] = None  # (nnz,) int32
+    raw_tfs: Optional[np.ndarray] = None  # (nnz,) float32
 
     @property
     def num_docs(self) -> int:
@@ -134,6 +140,7 @@ class SparseIndexBuilder:
         head_budget_bytes: int = DEFAULT_HEAD_BUDGET_BYTES,
         head_cap: int = DEFAULT_HEAD_CAP,
         head_dtype: str = "int8",  # 'int8' | 'int4' | 'bf16' | 'f32'
+        keep_raw_rows: bool = False,  # keep the term matrix (index cache)
     ):
         method = method.lower()
         if method in ("bm25", "bm25_custom", "bm25_retriever"):
@@ -149,6 +156,7 @@ class SparseIndexBuilder:
         self.head_budget_bytes = head_budget_bytes
         self.head_cap = head_cap
         self.head_dtype = head_dtype
+        self.keep_raw_rows = keep_raw_rows
 
     @staticmethod
     def _count_corpus_native(texts: List[str]):
@@ -326,6 +334,9 @@ class SparseIndexBuilder:
             avgdl=avgdl,
             k1=self.k1,
             b=self.b,
+            raw_indptr=indptr if self.keep_raw_rows else None,
+            raw_term_ids=flat_tids if self.keep_raw_rows else None,
+            raw_tfs=flat_tfs if self.keep_raw_rows else None,
         )
         logger.info(
             "Built %s index: %d docs, %d terms, head=%d (%s), tail_nnz=%d, "
@@ -334,3 +345,23 @@ class SparseIndexBuilder:
             layout.tail_nnz, layout.nbytes / 2**20, time.perf_counter() - t0,
         )
         return index
+
+
+def corpus_fingerprint(corpus: Mapping[str, object]) -> str:
+    """Cache key for a corpus (``osr_tpu``'s, so both packages name a
+    corpus's cache file alike): md5 over the corpus size, every doc id,
+    every document's text length and a strided sample of 128-character
+    text prefixes, first 16 hex digits. An edit to any document changes
+    it unless the edit keeps the length and misses the sampled prefixes."""
+    h = hashlib.md5()
+    h.update(str(len(corpus)).encode())
+    ids = sorted(str(k) for k in corpus.keys())
+    lengths = bytearray()
+    for doc_id in ids:
+        h.update(doc_id.encode())
+        lengths += len(extract_text(corpus[doc_id])).to_bytes(8, "little")
+    h.update(bytes(lengths))
+    stride = max(1, len(ids) // 128)
+    for doc_id in ids[::stride]:
+        h.update(extract_text(corpus[doc_id])[:128].encode())
+    return h.hexdigest()[:16]

@@ -1,7 +1,7 @@
 """ctypes bindings to the shared C++ host runtime (``native/osr_native.cc``).
 
 The port's counterpart of ``osr_tpu/native/__init__.py``, limited to the
-functions its search path calls. The library is ``native/libosrnative.so``
+functions its search path and its HashingEncoder call. The library is ``native/libosrnative.so``
 at the repository root (or the file ``OSR_TPU_NATIVE_LIB`` names); it is
 built with ``make -C native`` on first use when absent or older than its
 sources. Nothing loads or builds at import: each function loads the
@@ -148,6 +148,27 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.get_num_threads.restype = c_int
     lib.get_num_threads.argtypes = []
+    c_u64 = ctypes.c_uint64
+    pp_char = ctypes.POINTER(c_char_p)
+    p_u64 = ctypes.POINTER(c_u64)
+    lib.henc_create.restype = c_void_p
+    lib.henc_create.argtypes = [c_i64, c_i64, c_int]
+    lib.henc_free.restype = None
+    lib.henc_free.argtypes = [c_void_p]
+    lib.henc_hash.restype = c_u64
+    lib.henc_hash.argtypes = [c_char_p, c_i64]
+    lib.henc_df_size.restype = c_i64
+    lib.henc_df_size.argtypes = [c_void_p]
+    lib.henc_idf.restype = c_dbl
+    lib.henc_idf.argtypes = [c_void_p, c_u64]
+    lib.henc_fit.restype = None
+    lib.henc_fit.argtypes = [c_void_p, pp_char, p_i64, c_i64]
+    lib.henc_export_df.restype = None
+    lib.henc_export_df.argtypes = [c_void_p, p_u64, p_i32]
+    lib.henc_import_df.restype = None
+    lib.henc_import_df.argtypes = [c_void_p, p_u64, p_i32, c_i64, c_i64]
+    lib.henc_encode.restype = None
+    lib.henc_encode.argtypes = [c_void_p, pp_char, p_i64, c_i64, p_f32]
     return lib
 
 
@@ -501,3 +522,85 @@ def merge_topk_native(
         _i64(c_ptr), k, _f32(tau_slack), _f32(out_s), _i32(out_r),
     )
     return out_s, out_r
+
+
+def _u64(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+
+
+def blake2b64(data: bytes) -> int:
+    """The runtime's blake2b with an 8-byte digest, as a little-endian
+    uint64: ``int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(),
+    "little")``."""
+    return int(library().henc_hash(data, len(data)))
+
+
+class NativeHashingBackend:
+    """Native core of :class:`osr_tpu_torch.encoders.HashingEncoder`.
+
+    Documents arrive as '\\0'-joined utf-8 token buffers (tokenization
+    stays in Python, so ``re.findall(r"\\b\\w+\\b", text.lower())``'s
+    unicode semantics are exact); featurization (unigrams to n-grams),
+    blake2b hashing, TF counting, IDF weighting and the scatter-add run in
+    C++, threaded over documents. Rows come back unnormalized: the caller
+    normalizes them as its NumPy path does. Raises ImportError when the
+    runtime cannot be loaded."""
+
+    def __init__(self, dim: int, ngrams: int, use_idf: bool):
+        self._lib = library()
+        self.dim = int(dim)
+        self._h = self._lib.henc_create(
+            self.dim, int(ngrams), int(bool(use_idf))
+        )
+        if not self._h:
+            raise ValueError(f"henc_create({dim}, {ngrams}) failed")
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h:
+            self._lib.henc_free(h)
+
+    @staticmethod
+    def _doc_array(token_docs):
+        n = len(token_docs)
+        arr = (ctypes.c_char_p * n)(*token_docs)  # keeps refs for the call
+        lens = np.fromiter((len(d) for d in token_docs), np.int64, count=n)
+        return arr, lens, n
+
+    def fit(self, token_docs) -> None:
+        arr, lens, n = self._doc_array(token_docs)
+        self._lib.henc_fit(self._h, arr, _i64(lens), n)
+
+    def encode(self, token_docs) -> np.ndarray:
+        """(n_docs, dim) float32, unnormalized."""
+        arr, lens, n = self._doc_array(token_docs)
+        out = np.zeros((n, self.dim), dtype=np.float32)
+        if n:
+            self._lib.henc_encode(self._h, arr, _i64(lens), n, _f32(out))
+        return out
+
+    def idf(self, feat_hash: int) -> float:
+        return float(self._lib.henc_idf(self._h, feat_hash))
+
+    def export_df(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys uint64, vals int32) of the fitted df table, sorted by key
+        so the saved file is deterministic."""
+        n = int(self._lib.henc_df_size(self._h))
+        keys = np.empty(n, dtype=np.uint64)
+        vals = np.empty(n, dtype=np.int32)
+        if n:
+            self._lib.henc_export_df(self._h, _u64(keys), _i32(vals))
+            order = np.argsort(keys, kind="stable")
+            keys, vals = keys[order], vals[order]
+        return keys, vals
+
+    def import_df(self, keys: np.ndarray, vals: np.ndarray, n_docs: int) -> None:
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        vals = np.ascontiguousarray(vals, dtype=np.int32)
+        if keys.shape != vals.shape or keys.ndim != 1:
+            raise ValueError(
+                f"df keys/vals shape mismatch: {keys.shape} vs {vals.shape}"
+            )
+        self._lib.henc_import_df(
+            self._h, _u64(keys), _i32(vals), len(keys), int(n_docs)
+        )

@@ -581,6 +581,14 @@ class SparseSearchEngine:
             tau_slack=tau_slack,
         )
 
+    def search_token_batch(
+        self, texts: Sequence[str], top_k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Encode + search one batch of query strings synchronously: (B, k)
+        scores and int32 doc rows, B the batch padded to its bucket."""
+        enc = self.encode_queries(texts)
+        return self.finish_batch(self.search_encoded_device(enc, top_k), top_k)
+
     def score_all(self, texts: Sequence[str]) -> np.ndarray:
         """Dense (len(texts), num_docs) score matrix: the oracle API. Head
         scores come from the device (plain version, in the head's dtype,

@@ -326,3 +326,47 @@ def test_plan_score_chunks(free, copy, requested, chunk):
     assert budget == (None if free is None else free // 4)
     if free is not None and requested is None and rows > 4_096:
         assert need <= budget  # an auto chunk above the floor fits
+
+
+# search_token_batch, mirrored from tests/test_sparse_scoring.py's
+# test_fused_topk_equals_dense_argsort (ATOL 1e-3, rtol 1e-3 there), and
+# held against osr_tpu's on the same index (scores within RTOL; rows equal
+# except at near-ties).
+@pytest.mark.parametrize("head_terms", [0, 64, None])
+def test_search_token_batch_equals_dense_argsort(head_terms):
+    from osr_tpu_torch.index.builder import SparseIndexBuilder as TBuilder
+
+    from tests.reference_impl import zipf_corpus, zipf_queries
+
+    corpus = zipf_corpus(num_docs=300, vocab_size=800, avg_len=60)
+    texts = list(
+        zipf_queries(num_queries=25, vocab_size=800, terms_per_query=6).values()
+    )
+    index = TBuilder(
+        method="bm25", head_terms=head_terms, head_dtype="f32"
+    ).build(corpus)
+    engine = SparseSearchEngine(index, device="cpu")
+    dense = engine.score_all(texts)
+    k, atol = 10, 1e-3
+    scores, rows = engine.search_token_batch(texts, k)
+    assert rows.dtype == np.int32 and scores.shape == (32, k)  # bucket 32
+    for i in range(len(texts)):
+        want = np.sort(dense[i])[::-1][:k]
+        np.testing.assert_allclose(
+            np.sort(scores[i])[::-1], want, atol=atol, rtol=1e-3
+        )
+        got_set = set(rows[i][scores[i] > want[-1] + atol].tolist())
+        want_set = set(np.argsort(dense[i])[::-1][:k].tolist())
+        assert got_set <= want_set
+
+    jidx = SparseIndexBuilder(
+        method="bm25", head_terms=head_terms, head_dtype="f32"
+    ).build(corpus)
+    j_scores, j_rows = JaxEngine(jidx).search_token_batch(texts, k)
+    np.testing.assert_allclose(scores, j_scores, rtol=RTOL, atol=1e-6)
+    for r, c in zip(*np.nonzero(rows != j_rows)):
+        near = [j for j in (c - 1, c + 1) if 0 <= j < k]
+        assert any(
+            abs(j_scores[r, c] - j_scores[r, j]) <= RTOL * abs(j_scores[r, c])
+            for j in near
+        ), (r, c)

@@ -12,6 +12,14 @@ import osr_tpu_torch
 from osr_tpu_torch.retrieval.engine import SparseSearchEngine
 from osr_tpu_torch import SparseIndexBuilder, index_from_arrays
 import osr_tpu_torch.ops.head, osr_tpu_torch.ops._build, osr_tpu_torch.native
+import osr_tpu_torch.retrieval.registry, osr_tpu_torch.retrieval.service
+import osr_tpu_torch.retrieval.fusion, osr_tpu_torch.encoders
+import osr_tpu_torch.index.cache, osr_tpu_torch.index.learned
+import osr_tpu_torch.storage
+from osr_tpu_torch import (
+    Document, DocumentStore, HashingEncoder, HybridRetriever,
+    RetrievalService, RetrieverRegistry,
+)
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes")
