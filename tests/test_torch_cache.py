@@ -186,8 +186,8 @@ def test_cache_loads_across_packages(
     jax_cache, tmp_path, monkeypatch, writer, head_dtype, container
 ):
     """An index saved by one package loads in the other bit-equal (the
-    bf16 head as raw bytes), and the port searches the loaded index to the
-    results of the index it built itself."""
+    bf16 head as raw bytes) and searches to the results of the reading
+    package's own build."""
     jbuilder_mod, jcache = jax_cache
     corpus = SyntheticDataGenerator(seed=3).zipf_corpus(
         300, 1_500, avg_len=30, word_prefix="t", min_len=5
@@ -216,6 +216,11 @@ def test_cache_loads_across_packages(
         for name in ("head", "post_ptr", "post_rows", "post_weights"):
             x, y = getattr(loaded.layout, name), getattr(want.layout, name)
             assert x.tobytes() == y.tobytes(), name
+        from osr_tpu.retrieval.engine import SparseSearchEngine as JaxEngine
+
+        assert JaxEngine(loaded, cache_queries=False).search(
+            queries, top_k=8
+        ) == JaxEngine(want, cache_queries=False).search(queries, top_k=8)
 
 
 def test_load_or_build_reads_a_cache_written_by_osr_tpu(jax_cache, tmp_path):
