@@ -58,7 +58,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    encoder's fit + encode time, QPS (median of 3) of the hybrid, the bm25
    retriever and the hybrid's dense leg alone, one hybrid batch stage by
    stage, and the device step share of a hybrid pass;
-7. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
+7. the experiment pipeline on the same corpus: the port's build_dataset
+   (noisy regime, 2,048 queries with graded qrels) written as BEIR files
+   and read back by the loaders (ids, texts, one grade-2 document a
+   query); HFEncoder at Contriever's published width (BERT-base: 12
+   layers, hidden 768, 12 heads, vocabulary 30,522, seeded weights, a
+   WordPiece vocabulary of the corpus's most frequent terms) in f32 on
+   the card against f32 on the CPU over 256 docs (max abs 1e-5, TF32
+   off) and in bf16 against f32 (1e-2), its bf16 docs/s and tokens/s;
+   then run_all_experiments on a config dict with three experiments on
+   cuda: prose_87k.yaml's bm25 block (extractive reader, K2), its hybrid
+   RRF-IDF block (generative reader, K2 + K7 + K5) and contriever over
+   the bf16 HFEncoder (K7 + K5), each with every query processed, its
+   kernels launched, its preds equal to a direct retriever.search of the
+   same block and its quality equal to evaluate_retrieval over that
+   search; prints build, warmup and retrieve seconds, retrieval and
+   pipeline QPS, nDCG@10 and the stage split of each experiment;
+8. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
    400,000-term vocabulary, int8 head F=2,048, 2,048 queries at top_k=50,
    B=2,048, through three engines: (x) extraction in 2 row chunks of
    500,096 (K4), (s) the standard chunked program (K2), (f) one unchunked
@@ -67,7 +83,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    slack check; QPS (median of 3), device step per batch, the stage split,
    and K4 at one chunk against its bound, plain twin and a cuBLAS +
    torch.topk yardstick;
-8. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
+9. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
    1,024 at top_k=50, launches counted; the corpus codes equal the plain
@@ -76,14 +92,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    self-hit rate; each kernel against its plain version at the path's
    shapes (error 0) with its times; the dense device
    step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
-9. drive the quantization round trip (quantize, dequantize; deterministic
+10. drive the quantization round trip (quantize, dequantize; deterministic
    and stochastic, as benchmarks/suites.py's quantization suite does) on
    the 1M corpus, counting K7 and K8, and time K7 and K8 there; then dense
    QPS at bench.py's own dense shape (the bench corpus size x 768,
    B=4,096), for reference.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
-(with ``surface_launches``, phase 6's launches, on K2's, K7's and K5's),
+(with ``surface_launches`` and ``pipeline_launches``, phase 6's and phase
+7's launches, on K2's, K7's and K5's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 """
@@ -1375,6 +1392,250 @@ def retrieval_surface(corpus, queries, scratch):
 
 
 # ----------------------------------------------------------------------
+# The experiment pipeline: loaders, registry, readers, metrics, HFEncoder
+# ----------------------------------------------------------------------
+
+PIPELINE_QUERIES = 2_048  # FiQA's 6,648 cut to keep the phase near 120 s
+PIPELINE_DATASET = "fiqa_scale"
+# facebook/contriever's config.json (BERT-base), written here: nothing is
+# downloaded. The weights are seeded.
+CONTRIEVER = dict(vocab_size=30_522, hidden_size=768, num_hidden_layers=12,
+                  num_attention_heads=12, intermediate_size=3_072,
+                  max_position_embeddings=512, type_vocab_size=2)
+ENCODER_CHECK_DOCS = 256
+F32_CARD_ATOL = 1e-5  # f32 on the card (TF32 off) against f32 on the CPU
+BF16_ATOL = 1e-2  # tests/test_torch_hf_encoder.py's bf16 tolerance
+THROUGHPUT_DOCS = 4_096
+PIPELINE_KERNELS = {
+    "fiqa_bm25": ("head_blockmax_i8",),
+    "fiqa_hybrid_rrf_idf": SURFACE_KERNELS,
+    "fiqa_contriever": ("quantize_symmetric", "int8_similarity"),
+}
+
+
+def contriever_tokenizer(texts):
+    """WordPiece over the five specials plus the corpus's 30,517 most
+    frequent terms (Contriever's vocabulary size)."""
+    from collections import Counter
+
+    from osr_tpu_torch.bert import SPECIAL_TOKENS, WordPieceTokenizer
+
+    counts = Counter(w for t in texts for w in t.split())
+    terms = [w for w, _ in counts.most_common(
+        CONTRIEVER["vocab_size"] - len(SPECIAL_TOKENS))]
+    return WordPieceTokenizer(list(SPECIAL_TOKENS) + terms)
+
+
+def contriever_encoder(tokenizer, dtype, device):
+    """HFEncoder at Contriever's width over a seeded BertModel (seed 0),
+    max_length 256, batches of 64 (the repo's stand-in settings)."""
+    from osr_tpu_torch import HFEncoder
+    from osr_tpu_torch.bert import BertConfig, BertModel
+
+    model = BertModel(BertConfig(**CONTRIEVER),
+                      generator=torch.Generator().manual_seed(0))
+    return HFEncoder(
+        "contriever-width-standin-seed0", max_length=256, batch_size=64,
+        model=model, tokenizer=tokenizer, dtype=dtype, device=device,
+    )
+
+
+def check_encoder(texts):
+    """The Contriever-width encoder: f32 on the card against f32 on the
+    CPU, bf16 on the card against f32 on the card, over 256 docs; then its
+    bf16 throughput on the card. Returns the bf16 encoder."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("TF32 is on: the f32 encoder check needs f32 products")
+    docs = texts[:ENCODER_CHECK_DOCS]
+    tokenizer = contriever_tokenizer(texts)
+    t0 = time.perf_counter()
+    cpu = contriever_encoder(tokenizer, "float32", "cpu").encode(docs)
+    cpu_s = time.perf_counter() - t0
+    f32 = contriever_encoder(tokenizer, "float32", "cuda").encode(docs)
+    enc = contriever_encoder(tokenizer, "bfloat16", "cuda")
+    bf16 = enc.encode(docs)
+    f32_err = float(np.abs(f32 - cpu).max())
+    bf16_err = float(np.abs(bf16 - f32).max())
+    norms = np.linalg.norm(bf16, axis=1)
+    log(f"HFEncoder at Contriever's width ({CONTRIEVER['num_hidden_layers']} "
+        f"layers, hidden {CONTRIEVER['hidden_size']}, vocab "
+        f"{CONTRIEVER['vocab_size']}): f32 on the card vs f32 on the CPU "
+        f"over {len(docs)} docs max_abs_err={f32_err:.3e} (tolerance "
+        f"{F32_CARD_ATOL:g}; the CPU took {cpu_s:.1f} s); bf16 vs f32 on the "
+        f"card max_abs_err={bf16_err:.3e} (tolerance {BF16_ATOL:g})")
+    width = CONTRIEVER["hidden_size"]
+    if not (np.all(np.isfinite(bf16)) and bf16.shape == (len(docs), width)
+            and np.allclose(norms, 1.0, atol=1e-5)):
+        fail(f"the encoder's vectors are not finite unit rows of width {width}")
+    if f32_err > F32_CARD_ATOL:
+        fail("HFEncoder f32 on the card differs from the CPU")
+    if bf16_err > BF16_ATOL:
+        fail("HFEncoder bf16 differs from f32 beyond its tolerance")
+
+    sample = texts[:THROUGHPUT_DOCS]
+    enc.encode(sample[: enc.batch_size])
+    t0 = time.perf_counter()
+    enc.encode(sample)
+    secs = time.perf_counter() - t0
+    real = padded = 0
+    for i in range(0, len(sample), enc.batch_size):
+        mask = enc._tokenize(sample[i : i + enc.batch_size])["attention_mask"]
+        real += int(mask.sum())
+        padded += mask.numel()
+    t0 = time.perf_counter()
+    tok_only = [enc._tokenize(sample[i : i + enc.batch_size])
+                for i in range(0, len(sample), enc.batch_size)]
+    tok_s = time.perf_counter() - t0
+    del tok_only
+    t0 = time.perf_counter()
+    for t in sample[:256]:
+        enc.encode_one(t[:60])
+    one_ms = (time.perf_counter() - t0) / 256 * 1e3
+    log(f"HFEncoder bf16 on the card, {len(sample)} docs in batches of "
+        f"{enc.batch_size}: {len(sample) / secs:.1f} docs/s, {real / secs:.1f} "
+        f"tokens/s ({padded / secs:.1f} padded tokens/s; {real / len(sample):.1f} "
+        f"tokens a doc); host tokenization alone {tok_s:.2f} s of "
+        f"{secs:.2f} s; encode_one of a short text {one_ms:.3f} ms")
+    return enc
+
+
+def check_dataset(ds, texts, made):
+    from osr_tpu_torch.storage.loaders import load_corpus, load_qrels, load_queries
+
+    corpus = load_corpus(ds)
+    queries = load_queries(ds)
+    qrels = load_qrels(ds)
+    if list(corpus) != [f"p{i}" for i in range(len(texts))] or any(
+        corpus[f"p{i}"]["text"] != t for i, t in enumerate(texts)
+    ):
+        fail("load_corpus does not give back the written documents")
+    if list(queries) != [f"q{i}" for i in range(made)] or any(
+        not q["text"] for q in queries.values()
+    ):
+        fail("load_queries does not give back the written queries")
+    if set(qrels) != set(queries) or any(
+        sorted(r.values()).count(2) != 1 for r in qrels.values()
+    ):
+        fail("load_qrels: every query needs exactly one grade-2 document")
+    return corpus, queries, qrels
+
+
+def experiment_pipeline(corpus, scratch):
+    """Phase 7: the experiment pipeline at FiQA scale through
+    run_all_experiments on a config dict. Returns the pipeline's launches
+    of K2, K7 and K5 (summed over its experiments)."""
+    from osr_tpu_torch import RetrieverRegistry, run_all_experiments
+    from osr_tpu_torch.metrics.ir import evaluate_retrieval
+    from osr_tpu_torch.pipeline import experiment as pipe
+    from osr_tpu_torch.storage.loaders import extract_query_text
+    from osr_tpu_torch.testing import build_dataset
+
+    texts = [d["text"] for d in corpus.values()]
+    root = scratch / "datasets"
+    t0 = time.perf_counter()
+    made, grade1 = build_dataset(root / PIPELINE_DATASET, texts,
+                                 PIPELINE_QUERIES, mode="noisy")
+    if made != PIPELINE_QUERIES:
+        fail(f"build_dataset made {made} queries, not {PIPELINE_QUERIES}")
+    docs, queries, qrels = check_dataset(root / PIPELINE_DATASET, texts, made)
+    log(f"dataset: {len(docs)} docs, {made} noisy queries, {grade1} grade-1 "
+        f"qrels written as BEIR files and read back in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    enc = check_encoder(texts)
+    blocks = {
+        "fiqa_bm25": (BM25_CONFIG,
+                      {"type": "extractive",
+                       "params": {"max_answer_length": 150}}),
+        "fiqa_hybrid_rrf_idf": (HYBRID_CONFIG,
+                                {"type": "generative",
+                                 "params": {"max_context_length": 500}}),
+        "fiqa_contriever": (
+            {"type": "contriever", "params": {
+                "top_k": SURFACE_TOP_K, "embedding_fn": enc.encode,
+                "query_embedding_fn": enc.encode_one, "device": "cuda"}},
+            {"type": "extractive", "params": {"max_answer_length": 150}}),
+    }
+    cfg = {
+        "datasets_root": str(root),
+        "output_dir": str(scratch / "results"),
+        "experiments": [
+            {"name": name, "dataset": PIPELINE_DATASET, "retriever": r,
+             "reader": rd}
+            for name, (r, rd) in blocks.items()
+        ],
+    }
+
+    launches = {}
+    inner = pipe.run_rag_experiment
+
+    def counted(exp_cfg, global_cfg, out_dir):
+        reset_all_launches()
+        try:
+            return inner(exp_cfg, global_cfg, out_dir)
+        finally:
+            torch.cuda.synchronize()
+            launches[exp_cfg["name"]] = all_launches()
+
+    pipe.run_rag_experiment = counted
+    t0 = time.perf_counter()
+    try:
+        overall = run_all_experiments(cfg)
+    finally:
+        pipe.run_rag_experiment = inner
+    log(f"run_all_experiments: {len(overall)} experiments in "
+        f"{time.perf_counter() - t0:.1f} s")
+    json.loads((scratch / "results" / "overall_results.json").read_text())
+
+    query_texts = {q: extract_query_text(r) for q, r in queries.items()}
+    totals = {n: 0 for n in SURFACE_KERNELS}
+    for name, (block, _) in blocks.items():
+        s = overall[name]
+        if s.get("status") != "ok":
+            fail(f"experiment {name}: {s}")
+        if s["queries_processed"] != made or s["queries_failed"] != 0:
+            fail(f"experiment {name} processed {s['queries_processed']} "
+                 f"queries, {s['queries_failed']} failed")
+        counts = launches[name]
+        for kernel in PIPELINE_KERNELS[name]:
+            if counts[kernel] == 0:
+                fail(f"experiment {name} launched no {kernel}")
+        for n in totals:
+            totals[n] += counts[n]
+        direct = RetrieverRegistry.create(block)
+        direct.build_index_from_corpus(docs)
+        want = direct.search(query_texts, top_k=s["top_k"])
+        check_results(want, query_texts, s["top_k"])
+        preds = json.loads(
+            (scratch / "results" / f"{name}_preds.json").read_text())
+        if [p["qid"] for p in preds] != list(query_texts) or any(
+            list(p["retriever_scores"].items())
+            != list(want[p["qid"]].items())[: pipe.MAX_CONTEXTS]
+            for p in preds
+        ):
+            fail(f"experiment {name}: preds differ from a direct search")
+        k_values = tuple(sorted({10, 100, s["top_k"]}))
+        if s["quality"] != evaluate_retrieval(want, qrels, k_values=k_values):
+            fail(f"experiment {name}: quality differs from evaluate_retrieval "
+                 "over the direct search")
+        st = s["stage_times_s"]
+        log(f"experiment {name}: build {s['build_time_s']:.2f} s, warmup "
+            f"{s['warmup_time_s']:.2f} s, retrieve {s['retrieve_time_s']:.2f} "
+            f"s; retrieval QPS {s['retrieval_qps']:.1f}, pipeline QPS "
+            f"{s['queries_per_second']:.1f}; nDCG@10 "
+            f"{s['quality']['ndcg@10']:.4f}; stages (s) "
+            f"{json.dumps({k: round(v, 3) for k, v in st.items()})}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; preds and quality "
+            "equal a direct search of the same block")
+        del direct
+        torch.cuda.empty_cache()
+    del enc
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ----------------------------------------------------------------------
 # Dense path: kernels K5-K8
 # ----------------------------------------------------------------------
 
@@ -2044,9 +2305,11 @@ def main():
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as scratch:
         surface = retrieval_surface(corpus, queries, Path(scratch))
+        log(f"retrieval surface done at {time.perf_counter() - t_start:.1f} s")
+        pipeline = experiment_pipeline(corpus, Path(scratch))
     del corpus
     torch.cuda.empty_cache()
-    log(f"retrieval surface done at {time.perf_counter() - t_start:.1f} s")
+    log(f"experiment pipeline done at {time.perf_counter() - t_start:.1f} s")
 
     rows.append(million_path(dev))
     log(f"1M path done at {time.perf_counter() - t_start:.1f} s")
@@ -2055,6 +2318,7 @@ def main():
     for r in rows:
         if r["name"] in surface:
             r["surface_launches"] = surface[r["name"]]
+            r["pipeline_launches"] = pipeline[r["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

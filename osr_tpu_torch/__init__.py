@@ -9,7 +9,11 @@ quantization and int8/int4 similarity are hand-written CUDA kernels too.
 Above the engines: the config-driven ``RetrieverRegistry`` (sparse, dense,
 learned-sparse and hybrid retrievers, weighted or RRF fusion), the
 ``HashingEncoder``, the index cache, the ``DocumentStore`` and the
-``RetrievalService`` facade.
+``RetrievalService`` facade; the neural ``HFEncoder`` over this package's
+own BERT (``bert.py``); and the experiment pipeline above them all
+(``load_config`` -> ``run_all_experiments``: registry, engine,
+``ReaderRegistry`` reader, IR metrics, summary files), also reached through
+``python -m osr_tpu_torch run --config ...``.
 
 Module names follow ``osr_tpu`` so each part has an obvious counterpart.
 This package imports neither JAX nor ``osr_tpu``. Exports are lazy: ``import
@@ -25,8 +29,10 @@ _EXPORTS = {
     "DenseSearchEngine": "osr_tpu_torch.retrieval.engine",
     "Document": "osr_tpu_torch.storage.documents",
     "DocumentStore": "osr_tpu_torch.storage.doc_store",
+    "HFEncoder": "osr_tpu_torch.encoders",
     "HashingEncoder": "osr_tpu_torch.encoders",
     "HybridRetriever": "osr_tpu_torch.retrieval.registry",
+    "ReaderRegistry": "osr_tpu_torch.readers.registry",
     "RetrievalService": "osr_tpu_torch.retrieval.service",
     "RetrieverRegistry": "osr_tpu_torch.retrieval.registry",
     "SparseIndex": "osr_tpu_torch.index.builder",
@@ -36,6 +42,8 @@ _EXPORTS = {
     "dense_engine_from_arrays": "osr_tpu_torch.convert",
     "index_from_arrays": "osr_tpu_torch.convert",
     "layout_from_arrays": "osr_tpu_torch.convert",
+    "load_config": "osr_tpu_torch.pipeline.config",
+    "run_all_experiments": "osr_tpu_torch.pipeline.experiment",
 }
 
 __all__ = sorted(_EXPORTS)

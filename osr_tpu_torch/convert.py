@@ -1,7 +1,10 @@
 """Carry a built index across from ``osr_tpu``: its arrays become the
 port's :class:`SparseIndex` (or a dense engine's quantized rows)
-unchanged, so both packages can serve one index. Inputs are plain NumPy
-arrays and scalars, so this module needs neither JAX nor ``osr_tpu``.
+unchanged, so both packages can serve one index; and carry BERT weights
+across (``FlaxBertModel``'s parameters or ``transformers``' state dict
+into :class:`osr_tpu_torch.bert.BertModel`). Inputs are plain NumPy
+arrays, tensors and scalars, so this module needs neither JAX, nor
+``osr_tpu``, nor ``transformers``.
 
 A bf16 head may arrive as ml_dtypes' bfloat16 array (osr_tpu's host
 representation) or as uint16 bit patterns; the port keeps the bits.
@@ -9,11 +12,12 @@ representation) or as uint16 bit patterns; the port keeps the bits.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from osr_tpu_torch.bert import BertConfig, BertModel
 from osr_tpu_torch.index.builder import SparseIndex
 from osr_tpu_torch.index.layout import HEAD_DTYPES, HybridLayout
 from osr_tpu_torch.retrieval.engine import DenseSearchEngine
@@ -182,3 +186,58 @@ def dense_engine_from_arrays(
         rows(scales), rows(mins), quantization, dim,
         device=device, backend=backend, score_chunk_rows=score_chunk_rows,
     )
+
+
+# Flax leaf names -> nn.Module parameter names (a Dense kernel is (in, out),
+# nn.Linear's weight (out, in)).
+_FLAX_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+                "bias": "bias"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
+def bert_from_torch_state_dict(
+    config: Mapping, state_dict: Mapping[str, Any]
+) -> BertModel:
+    """This package's :class:`BertModel` from ``transformers``' BERT
+    config dict and state dict (a ``bert.`` prefix is dropped; the pooler
+    and the position-id buffers are not used)."""
+    model = BertModel(BertConfig.from_dict(config))
+    own = model.state_dict()
+    tensors = {}
+    for name, value in state_dict.items():
+        name = name.removeprefix("bert.")
+        if name in own:
+            tensors[name] = (
+                value if isinstance(value, torch.Tensor)
+                else torch.from_numpy(np.array(value))
+            )
+    model.load_state_dict(tensors, strict=True)
+    return model
+
+
+def bert_from_flax_params(config: Mapping, params: Mapping) -> BertModel:
+    """This package's :class:`BertModel` from ``FlaxBertModel.params`` (a
+    nested mapping of arrays; convert with ``jax.device_get`` or
+    ``np.asarray`` first) and its config dict. Each Dense ``kernel`` is
+    transposed; LayerNorm ``scale`` and Embed ``embedding`` become
+    ``weight``; the pooler is not used."""
+    state = {}
+    for name, value in _flatten(params).items():
+        if name.startswith("pooler."):
+            continue
+        path, leaf = name.rsplit(".", 1)
+        value = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            value = value.T
+        state[f"{path}.{_FLAX_LEAVES[leaf]}"] = value
+    return bert_from_torch_state_dict(config, state)

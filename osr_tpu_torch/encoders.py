@@ -1,6 +1,20 @@
 """Text encoders for the dense retrieval path (counterpart of
 ``osr_tpu/encoders.py``).
 
+:class:`HFEncoder` is the neural encoder: a BERT-style transformer
+(``bert.py:BertModel``, or any module returning ``.last_hidden_state``)
+on the card, mean-pooled over non-padding tokens and L2-normalized, the
+standard sentence-embedding recipe (and Contriever's)::
+
+    encoder = HFEncoder("contriever-standin", model=model, tokenizer=tok)
+    retriever = RetrieverRegistry.create({
+        "type": "contriever",
+        "params": {
+            "embedding_fn": encoder.encode,
+            "query_embedding_fn": encoder.encode_one,
+        },
+    })
+
 :class:`HashingEncoder` is a deterministic lexical encoder with no model
 weights: signed feature hashing of word unigrams and bigrams, optionally
 IDF-weighted, L2-normalized. Its vectors are bit-identical to
@@ -11,19 +25,131 @@ the dense leg of the ``hashing_idf`` hybrid retriever.
 :func:`encode_corpus_to_npy` materializes corpus embeddings to a ``.npy``
 file consumable by ``QuantizedDenseRetriever(embeddings_path=...)``.
 
-Everything here runs on the host (NumPy and the C++ runtime); the vectors
-reach the card through ``DenseSearchEngine``.
+The HashingEncoder runs on the host (NumPy and the C++ runtime); its
+vectors reach the card through ``DenseSearchEngine``.
 """
 
 from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class HFEncoder:
+    """Mean-pooling sentence encoder over a BERT-style transformer.
+
+    The constructor is ``osr_tpu``'s, plus ``device`` (``cuda`` unless the
+    caller names another). ``model`` is this package's ``BertModel`` or any
+    module whose output has ``.last_hidden_state``; it is moved to
+    ``device`` and ``dtype`` in place. ``tokenizer`` is called as
+    ``tokenizer(texts, padding, truncation, max_length, return_tensors)``
+    (``bert.py:WordPieceTokenizer``, or a ``transformers`` tokenizer).
+    Without them, both are loaded from ``model_name`` through
+    ``transformers`` (the state dict into this package's ``BertModel``).
+
+    ``dtype="bfloat16"`` runs the forward in bf16 and pools in it, as
+    ``osr_tpu``'s Flax backend does; outputs are f32 either way. With
+    ``pad_to_max`` every batch is (``batch_size``, ``max_length``): the
+    tail batch gets empty filler texts, sliced off after pooling."""
+
+    def __init__(
+        self,
+        model_name: str,
+        max_length: int = 256,
+        batch_size: int = 64,
+        backend: str = "auto",  # 'auto' | 'torch': the only forward here
+        model=None,
+        tokenizer=None,
+        pad_to_max: bool = False,
+        dtype: str = "float32",
+        device=None,
+    ):
+        from osr_tpu_torch.retrieval.engine import _resolve_device
+
+        if backend not in ("auto", "torch"):
+            raise ValueError(
+                f"backend {backend!r}: this package runs the torch forward "
+                "only ('auto' or 'torch')"
+            )
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype {dtype!r}: one of {sorted(_DTYPES)}")
+        self.model_name = model_name
+        self.max_length = max_length
+        self.batch_size = batch_size
+        self.pad_to_max = pad_to_max
+        self.backend = "torch"
+        self.dtype = _DTYPES[dtype]
+        self.device = _resolve_device(device)
+        if tokenizer is None or model is None:
+            try:
+                import transformers
+            except ImportError as e:
+                raise ImportError(
+                    "HFEncoder without model= and tokenizer= loads them "
+                    "through `transformers`, which is not installed; pass "
+                    "model= (e.g. osr_tpu_torch.bert.BertModel) and "
+                    "tokenizer= (e.g. osr_tpu_torch.bert.WordPieceTokenizer)"
+                ) from e
+            if tokenizer is None:
+                tokenizer = transformers.AutoTokenizer.from_pretrained(
+                    model_name
+                )
+            if model is None:
+                from osr_tpu_torch.convert import bert_from_torch_state_dict
+
+                hf = transformers.AutoModel.from_pretrained(model_name)
+                model = bert_from_torch_state_dict(
+                    hf.config.to_dict(), hf.state_dict()
+                )
+        self.tokenizer = tokenizer
+        self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        logger.info("HFEncoder %s on %s (%s)", model_name, self.device, dtype)
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        """(len(texts), hidden) float32, mean-pooled + L2-normalized."""
+        chunks = [
+            self._encode_batch(list(texts[i : i + self.batch_size]))
+            for i in range(0, len(texts), self.batch_size)
+        ]
+        if not chunks:
+            return np.zeros((0, 0), np.float32)
+        return np.concatenate(chunks, axis=0)
+
+    def encode_one(self, text: str) -> np.ndarray:
+        return self.encode([text])[0]
+
+    def _tokenize(self, texts: List[str]):
+        if self.pad_to_max and len(texts) < self.batch_size:
+            texts = list(texts) + [""] * (self.batch_size - len(texts))
+        return self.tokenizer(
+            texts,
+            padding="max_length" if self.pad_to_max else True,
+            truncation=True,
+            max_length=self.max_length,
+            return_tensors="pt",
+        )
+
+    @torch.inference_mode()
+    def _encode_batch(self, texts: List[str]) -> np.ndarray:
+        n = len(texts)  # pad_to_max may append filler rows; slice back
+        batch = {
+            k: torch.as_tensor(v).to(self.device)
+            for k, v in self._tokenize(texts).items()
+        }
+        hidden = self.model(**batch).last_hidden_state  # (B, T, H)
+        mask = batch["attention_mask"][..., None].to(hidden.dtype)
+        pooled = (hidden * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1)
+        pooled = pooled[:n].float()
+        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+        return (pooled / norm.clamp(min=1e-8)).cpu().numpy()
 
 
 class HashingEncoder:

@@ -84,3 +84,37 @@ def test_dense_modules_import_without_jax_or_osr_tpu():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+PIPELINE_PROBE = """
+import sys
+import osr_tpu_torch.pipeline, osr_tpu_torch.cli, osr_tpu_torch.__main__
+import osr_tpu_torch.encoders, osr_tpu_torch.bert, osr_tpu_torch.convert
+import osr_tpu_torch.readers, osr_tpu_torch.metrics, osr_tpu_torch.utils
+import osr_tpu_torch.storage.loaders, osr_tpu_torch.testing
+from osr_tpu_torch import (
+    HFEncoder, ReaderRegistry, load_config, run_all_experiments,
+)
+from osr_tpu_torch.testing import build_standin_encoder, harvest_chunks
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "transformers", "yaml")
+    or m.startswith(("jax.", "jaxlib.", "osr_tpu.", "transformers."))
+)
+print("LOADED", bad)
+"""
+
+
+def test_pipeline_modules_import_without_jax_osr_tpu_or_transformers():
+    """The pipeline, CLI, encoders, bert, readers, metrics and utils load
+    neither JAX, osr_tpu, transformers nor PyYAML (load_config imports
+    yaml when it reads a file)."""
+    out = subprocess.run(
+        [sys.executable, "-c", PIPELINE_PROBE],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
