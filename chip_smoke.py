@@ -74,7 +74,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
    same block and its quality equal to evaluate_retrieval over that
    search; prints build, warmup and retrieve seconds, retrieval and
    pipeline QPS, nDCG@10 and the stage split of each experiment;
-8. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
+8. the benchmark suites on the same scratch data: (a) run_from_config on
+   osr_tpu/configs/benchmarks.yaml with device="cuda" (the bm25, topk,
+   quantization and storage suites) must pass every row, launch K1, K5,
+   K7 and K8, and hold a passing head_kernel_parity row (K1 == K2 bit for
+   bit, K1 within the kernels' tolerance of the plain scores); (b)
+   run_quality_benchmark over phase 7's dataset, bm25 and tfidf at
+   top_k=100 on cuda, must launch K2 and give IR metrics equal to the same
+   run on the plain head; (c) BEIRCompatibleSearch(device="cuda") over that
+   corpus and 256 of its queries must launch K2, equal
+   SparseSearchEngine(device="cuda") on the same title + text dict for
+   dict, and give back each hit's stored text; prints each suite's speed
+   rows, build seconds and warm QPS;
+9. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
    400,000-term vocabulary, int8 head F=2,048, 2,048 queries at top_k=50,
    B=2,048, through three engines: (x) extraction in 2 row chunks of
    500,096 (K4), (s) the standard chunked program (K2), (f) one unchunked
@@ -83,7 +95,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    slack check; QPS (median of 3), device step per batch, the stage split,
    and K4 at one chunk against its bound, plain twin and a cuBLAS +
    torch.topk yardstick;
-9. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
+10. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
    1,024 at top_k=50, launches counted; the corpus codes equal the plain
@@ -92,7 +104,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    self-hit rate; each kernel against its plain version at the path's
    shapes (error 0) with its times; the dense device
    step per batch, QPS (median of 5 passes) and p50/p95 B=1 latency;
-10. drive the quantization round trip (quantize, dequantize; deterministic
+11. drive the quantization round trip (quantize, dequantize; deterministic
    and stochastic, as benchmarks/suites.py's quantization suite does) on
    the 1M corpus, counting K7 and K8, and time K7 and K8 there; then dense
    QPS at bench.py's own dense shape (the bench corpus size x 768,
@@ -100,7 +112,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
 (with ``surface_launches`` and ``pipeline_launches``, phase 6's and phase
-7's launches, on K2's, K7's and K5's),
+7's launches, on K2's, K7's and K5's, and ``benchmarks_launches``, phase
+8's, on every kernel's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 """
@@ -348,18 +361,6 @@ def tile_loads(head, b):
     return blocks * -(-hw // row_bytes) * (2 * 16384 + 128 * row_bytes) / 1e9
 
 
-def score_bound(head, scales, qhead):
-    """(B, R) f32 bound on |kernel - plain| per score: 4 F 2^-24 sum_j
-    |q_j w_rj| (f32 summation order; the products are exact on both
-    sides)."""
-    from osr_tpu_torch.ops import head as H
-
-    q = H.scaled_query(qhead, scales, H.logical_width(head)).float()
-    with H.f32_matmul():
-        mag = q.abs() @ H.decode_head(head).abs().T
-    return mag.mul_(4 * q.shape[1] * 2.0**-24)
-
-
 def check_kernel(name, head, scales, qhead, valid):
     """Kernel vs plain on the same card inputs. Per entry, |kernel - plain|
     <= 4 F 2^-24 sum_j |q_j w_ij| (f32 summation order; the products are
@@ -370,7 +371,7 @@ def check_kernel(name, head, scales, qhead, valid):
     got, gmax = kernel_call(name, head, scales, qhead, valid)
     want, _ = kernel_call(name, head, scales, qhead, valid, plain=True)
     torch.cuda.synchronize()
-    bound = score_bound(head, scales, qhead)
+    bound = H.score_tolerance(head, scales, qhead)
     ok = valid[None, :].expand_as(got)
     if not torch.all(got[~ok] == float("-inf")):
         fail(f"{name}: masked entries are not -inf")
@@ -502,7 +503,7 @@ def check_blocktopm(head, scales, qhead, valid, m, exact_sum):
     """K4 vs its plain twin on the same card inputs. Exact-sum inputs:
     values bit-equal, rows equal wherever the value is finite (the row of
     a -inf value is unspecified, as in osr_tpu). Otherwise each value
-    within the K1-K3 tolerance (the largest score_bound of the batch: a
+    within the K1-K3 tolerance (the largest score_tolerance of the batch: a
     rank's value moves by at most the largest score error), and the plain
     score of each kernel row within twice it of the plain value at its
     rank (a near-tie may swap two rows). Returns max |kernel - plain|."""
@@ -524,7 +525,7 @@ def check_blocktopm(head, scales, qhead, valid, m, exact_sum):
         ):
             fail(f"{what}: not bit-equal to the plain twin on exact sums")
         return 0.0
-    tol = score_bound(head, scales, qhead).max().item()
+    tol = H.score_tolerance(head, scales, qhead).max().item()
     err = (got_v - want_v)[finite].abs().max().item() if finite.any() else 0
     if not err <= tol:
         fail(f"{what}: value error {err} over the tolerance {tol}")
@@ -911,7 +912,7 @@ def fiqa_plans(index, base, queries, dtype):
 
 
 def million_path(dev):
-    """Phase 7. Returns K4-i8's record, its launches from the (x) run."""
+    """Phase 9. Returns K4-i8's record, its launches from the (x) run."""
     from osr_tpu_torch.index.builder import SparseIndexBuilder
     from osr_tpu_torch.ops import head as H
     from osr_tpu_torch.retrieval.engine import SparseSearchEngine
@@ -1636,6 +1637,191 @@ def experiment_pipeline(corpus, scratch):
 
 
 # ----------------------------------------------------------------------
+# The benchmark suites, the quality harness and the BEIR adapter
+# ----------------------------------------------------------------------
+
+BENCH_SPEC = Path(__file__).resolve().parent / "osr_tpu/configs/benchmarks.yaml"
+SUITE_KERNELS = ("head_scores_i8", "int8_similarity", "quantize_symmetric",
+                 "dequantize_symmetric")
+QUALITY_METHODS = ("bm25", "tfidf")
+BEIR_QUERIES = 256
+
+
+def bench_spec(scratch):
+    """Phase 8 (a): the repo's benchmark spec through run_from_config on
+    cuda. Returns the run's launches."""
+    from osr_tpu_torch.benchmarks.runner import (
+        load_benchmark_config,
+        run_from_config,
+    )
+
+    cfg = load_benchmark_config(BENCH_SPEC)
+    cfg.output_dir = str(scratch / "bench_suites")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    overall = run_from_config(cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = all_launches()
+    secs = time.perf_counter() - t0
+    rows = {}
+    for suite in overall["suites"]:
+        if suite["error"]:
+            fail(f"benchmark suite {suite['suite']}: {suite['error']}")
+        for r in suite["results"]:
+            rows[f"{suite['suite']}/{r['name']}"] = r
+            if not r["passed"]:
+                fail(f"benchmark row {suite['suite']}/{r['name']} failed: "
+                     f"{r['metrics']}")
+    if not overall["all_passed"]:
+        fail("the benchmark spec did not pass")
+    parity = rows.get("bm25/head_kernel_parity")
+    if parity is None:
+        fail("the bm25 suite has no head_kernel_parity row on cuda")
+    for kernel in SUITE_KERNELS:
+        if counts[kernel] == 0:
+            fail(f"the benchmark spec launched no {kernel}")
+    if overall["backend_validation"]["platform"] != "gpu":
+        fail("the suites' backend validation did not run on the card")
+    log(f"benchmark spec {BENCH_SPEC.name} on cuda: "
+        f"{overall['total_passed']}/{overall['total_benchmarks']} rows "
+        f"passed in {secs:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    m = parity["metrics"]
+    log(f"  bm25/head_kernel_parity: K1 == K2 {m['k1_equals_k2_scores']}, "
+        f"max |K1 - plain| {m['max_abs_err_vs_plain']:.3e} within the "
+        f"tolerance {m['within_tolerance_of_plain']}; K1 "
+        f"{m['kernel_s'] * 1e3:.4f} ms, plain {m['plain_s'] * 1e3:.4f} ms")
+    for name in ("bm25/throughput_vs_csr", "quantization/int8_matmul_speed",
+                 "topk/topk_exact", "topk/topk_fast_bf16_rerank",
+                 "topk/topk_approx_threshold", "storage/build",
+                 "storage/random_access"):
+        r = rows[name]
+        log(f"  {name}: {json.dumps(r['metrics'])}; "
+            f"{r['duration_s'] * 1e3:.3f} ms; grade {r['grade']}")
+    return counts
+
+
+def quality_at_scale(ds, scratch):
+    """Phase 8 (b): run_quality_benchmark over phase 7's FiQA-scale
+    dataset, bm25 and tfidf at top_k=100 on cuda (K2), against the same
+    run with every engine's head on the plain version. Returns the
+    kernel run's launches."""
+    import functools
+
+    from osr_tpu_torch.benchmarks.quality import run_quality_benchmark
+    from osr_tpu_torch.retrieval import registry
+
+    def run(out, **engine_kwargs):
+        engine = registry.SparseSearchEngine
+        registry.SparseSearchEngine = functools.partial(engine, **engine_kwargs)
+        reset_all_launches()
+        try:
+            res = run_quality_benchmark(
+                ds, methods=QUALITY_METHODS, out_dir=scratch / out,
+                top_k=SURFACE_TOP_K, device="cuda",
+            )
+        finally:
+            registry.SparseSearchEngine = engine
+        torch.cuda.synchronize()
+        for m, r in res.items():
+            if "error" in r:
+                fail(f"quality benchmark {out} {m}: {r['error']}")
+        return res, all_launches()
+
+    got, counts = run("quality")
+    want, plain_counts = run("quality_plain", head_backend="torch")
+    if counts["head_blockmax_i8"] == 0:
+        fail("the quality benchmark launched no head_blockmax_i8")
+    if any(plain_counts.values()):
+        fail(f"the plain-head quality run launched kernels: {plain_counts}")
+    for m in QUALITY_METHODS:
+        ir = sorted(k for k in want[m] if "@" in k)
+        diff = {k: (got[m][k], want[m][k]) for k in ir
+                if got[m][k] != want[m][k]}
+        if not ir or diff:
+            fail(f"quality benchmark {m}: the kernel head's IR metrics "
+                 f"differ from the plain head's: {diff}")
+        r = got[m]
+        log(f"quality benchmark {m} at FiQA scale ({r['num_docs']} docs, "
+            f"{r['num_queries']} queries, top_k={r['top_k']}): build "
+            f"{r['build_time_s']:.2f} s, cold search {r['cold_search_s']:.3f} "
+            f"s, warm QPS {r['qps']:.1f} (plain head "
+            f"{want[m]['qps']:.1f}); nDCG@10 {r['ndcg@10']:.4f}, recall@100 "
+            f"{r['recall@100']:.4f}: IR metrics equal the plain head's")
+    log(f"  quality launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
+def beir_adapter(ds, scratch):
+    """Phase 8 (c): BEIRCompatibleSearch on cuda over phase 7's corpus and
+    256 of its queries, against SparseSearchEngine(device="cuda") on the
+    same title + text, dict for dict; every hit's stored text back from
+    get_documents. Returns the adapter's launches."""
+    from osr_tpu_torch.benchmarks.beir_adapter import BEIRCompatibleSearch
+    from osr_tpu_torch.index.builder import SparseIndexBuilder
+    from osr_tpu_torch.retrieval.engine import SparseSearchEngine
+    from osr_tpu_torch.storage.loaders import (
+        extract_query_text,
+        load_corpus,
+        load_queries,
+    )
+
+    corpus = load_corpus(ds)
+    queries = {q: extract_query_text(r) for q, r in
+               list(load_queries(ds).items())[:BEIR_QUERIES]}
+    s = BEIRCompatibleSearch(store_path=scratch / "beir.osrd", device="cuda")
+    try:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        got = s.search(corpus, queries, top_k=SURFACE_TOP_K)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = all_launches()
+        if counts["head_blockmax_i8"] == 0:
+            fail("the BEIR adapter launched no head_blockmax_i8")
+        check_results(got, queries, SURFACE_TOP_K)
+        searchable = {
+            d: {"text": (r.get("title", "") + " " + r.get("text", "")).strip()}
+            for d, r in corpus.items()
+        }
+        engine = SparseSearchEngine(
+            SparseIndexBuilder(method="bm25").build(searchable),
+            device="cuda", batch_sizes=(s.batch_size,),
+        )
+        want = engine.search(queries, top_k=SURFACE_TOP_K)
+        if {q: list(r.items()) for q, r in got.items()} != {
+            q: list(r.items()) for q, r in want.items()
+        }:
+            fail("the BEIR adapter's results differ from the engine's")
+        hits = sorted({d for r in got.values() for d in r})
+        docs = s.get_documents(hits)
+        if any(doc is None or doc.id != d or doc.text != corpus[d]["text"]
+               for d, doc in zip(hits, docs)):
+            fail("get_documents does not give back each hit's stored text")
+    finally:
+        s.close()
+    log(f"BEIR adapter on cuda: index + {len(queries)} queries in "
+        f"{secs:.2f} s ({s.index_stats['num_docs']} docs); results equal "
+        f"SparseSearchEngine(device='cuda') dict for dict; {len(hits)} hits' "
+        f"stored texts read back; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return counts
+
+
+def benchmark_suites(scratch):
+    """Phase 8: the benchmark suites, the quality harness and the BEIR
+    adapter on the card. Returns the phase's launches, summed."""
+    ds = scratch / "datasets" / PIPELINE_DATASET
+    totals = {}
+    for counts in (bench_spec(scratch), quality_at_scale(ds, scratch),
+                   beir_adapter(ds, scratch)):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ----------------------------------------------------------------------
 # Dense path: kernels K5-K8
 # ----------------------------------------------------------------------
 
@@ -2060,7 +2246,7 @@ def quantization_round_trip(emb):
 
 
 def dense_phases(dev, bench_docs):
-    """Phases 8 and 9; returns the dense kernels' records."""
+    """Phases 10 and 11; returns the dense kernels' records."""
     from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
     from osr_tpu_torch.retrieval.engine import DenseSearchEngine
 
@@ -2307,9 +2493,11 @@ def main():
         surface = retrieval_surface(corpus, queries, Path(scratch))
         log(f"retrieval surface done at {time.perf_counter() - t_start:.1f} s")
         pipeline = experiment_pipeline(corpus, Path(scratch))
+        log(f"experiment pipeline done at {time.perf_counter() - t_start:.1f} s")
+        benchmarks = benchmark_suites(Path(scratch))
     del corpus
     torch.cuda.empty_cache()
-    log(f"experiment pipeline done at {time.perf_counter() - t_start:.1f} s")
+    log(f"benchmark suites done at {time.perf_counter() - t_start:.1f} s")
 
     rows.append(million_path(dev))
     log(f"1M path done at {time.perf_counter() - t_start:.1f} s")
@@ -2319,6 +2507,7 @@ def main():
         if r["name"] in surface:
             r["surface_launches"] = surface[r["name"]]
             r["pipeline_launches"] = pipeline[r["name"]]
+        r["benchmarks_launches"] = benchmarks[r["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import importlib
 
+__version__ = "0.1.0"
+
 _EXPORTS = {
     "DenseSearchEngine": "osr_tpu_torch.retrieval.engine",
     "Document": "osr_tpu_torch.storage.documents",
@@ -39,14 +41,16 @@ _EXPORTS = {
     "SparseIndexBuilder": "osr_tpu_torch.index.builder",
     "SparseSearchEngine": "osr_tpu_torch.retrieval.engine",
     "SyntheticDataGenerator": "osr_tpu_torch.testing",
+    "Tokenizer": "osr_tpu_torch.index.tokenizer",
     "dense_engine_from_arrays": "osr_tpu_torch.convert",
     "index_from_arrays": "osr_tpu_torch.convert",
     "layout_from_arrays": "osr_tpu_torch.convert",
     "load_config": "osr_tpu_torch.pipeline.config",
     "run_all_experiments": "osr_tpu_torch.pipeline.experiment",
+    "tokenize": "osr_tpu_torch.index.tokenizer",
 }
 
-__all__ = sorted(_EXPORTS)
+__all__ = sorted(_EXPORTS) + ["__version__"]
 
 
 def __getattr__(name):

@@ -10,13 +10,14 @@ the other drivers:
     evaluate  — generation metrics over a predictions file
     errors    — error analysis over predictions + qrels
     validate  — dataset validation / statistics
-    bench     — efficiency benchmark over a dataset (``--dataset``)
+    bench     — efficiency benchmark over a dataset (``--dataset``), or the
+                config-driven benchmark suites (``--config``)
 
-``--platform cpu`` runs every retriever on the CPU (the plain PyTorch
-versions of the kernels); ``gpu`` runs them on ``cuda``; ``default`` keeps
-each config block's device, ``cuda`` where none is named. ``cuda`` raises
-without a card. ``osr_tpu``'s ``bench --config`` (the benchmark suites)
-is not offered yet.
+``--platform cpu`` runs every retriever, and every benchmark suite, on the
+CPU (the plain PyTorch versions of the kernels); ``gpu`` runs them on
+``cuda``; ``default`` keeps each config block's device, ``cuda`` where
+none is named (the suites run on ``cuda``). ``cuda`` raises without a
+card.
 """
 
 from __future__ import annotations
@@ -136,6 +137,32 @@ def _cmd_validate(args) -> int:
 
 
 def _cmd_bench(args) -> int:
+    if args.config:
+        # Config-driven suite runner (reference bench/core/
+        # benchmark_runner.py semantics): suites, sizes, seed, threads.
+        from osr_tpu_torch.benchmarks.runner import (
+            load_benchmark_config,
+            run_from_config,
+        )
+
+        cfg = load_benchmark_config(args.config)
+        if args.output:
+            cfg.output_dir = args.output
+        overall = run_from_config(cfg, device=_device(args))
+        print(
+            json.dumps(
+                {
+                    "all_passed": overall["all_passed"],
+                    "total_benchmarks": overall["total_benchmarks"],
+                    "total_passed": overall["total_passed"],
+                    "output_dir": cfg.output_dir,
+                }
+            )
+        )
+        return 0 if overall["all_passed"] else 1
+    if not args.dataset:
+        raise SystemExit("bench requires --dataset or --config")
+
     from osr_tpu_torch.pipeline.efficiency import run_comprehensive_benchmark
     from osr_tpu_torch.storage.loaders import (
         extract_query_text,
@@ -216,8 +243,12 @@ def main(argv=None) -> int:
     p.add_argument("--stats", action="store_true")
     p.set_defaults(fn=_cmd_validate)
 
-    p = sub.add_parser("bench", help="efficiency benchmark on a dataset")
-    p.add_argument("--dataset", required=True)
+    p = sub.add_parser(
+        "bench",
+        help="efficiency benchmark on a dataset, or config-driven suites",
+    )
+    p.add_argument("--dataset")
+    p.add_argument("--config", help="YAML benchmark spec (suites/seed/threads)")
     p.add_argument("--top-k", type=int, default=10)
     p.add_argument("--max-queries", type=int)
     p.add_argument("--output")

@@ -6,15 +6,18 @@
 //   K8 _dequant_kernel (:115), launched via dequantize_symmetric_pallas
 //
 // What they compute, for x (N, D) float32:
-//   scale[r]    = max(max_c |x[r, c]|, 1e-8) / 127            (IEEE division)
+//   scale[r]    = max(max_c |x[r, c]|, 1e-8) * f32(1/127)
 //   values[r,c] = rint(x[r, c] / scale[r])                    (half to even)
 // or, stochastic, floor(s) + (u < s - floor(s)) clipped to [-127, 127], with
 // s = x / scale and u = (bits >> 8) / 2^24 for 32 random bits per element;
 // and the inverse out[r, c] = float(values[r, c]) * scale[r].
 //
-// Numerics. The build has no --use_fast_math, so '/' is the IEEE division
-// and rintf rounds half to even, as torch.round does: codes and scales equal
-// the plain PyTorch versions (ops/quantize_kernels.py) bit for bit. The TPU's
+// Numerics. The scale is osr_tpu's absmax / 127.0 as its XLA computes it, a
+// multiply by the reciprocal of 127 rounded to f32 (a single rounding, so no
+// fused multiply-add can change it). The build has no --use_fast_math, so
+// the codes' '/' is the IEEE division and rintf rounds half to even, as
+// torch.round does: codes and scales equal the plain PyTorch versions
+// (ops/quantize_kernels.py) and osr_tpu's bit for bit. The TPU's
 // per-core PRNG cannot be reproduced, so stochastic rounding draws its bits
 // from a counter-based hash, bits = fmix32(fmix32(seed ^ row * 0x9E3779B1)
 // ^ col) (murmur3's finalizer), which the plain version computes with int64
@@ -104,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int o = 16; o > 0; o >>= 1) {
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   }
-  const float scale = fmaxf(amax, kEps) / 127.0f;
+  const float scale = fmaxf(amax, kEps) * (1.0f / 127.0f);
   if (lane == 0) scales[row] = scale;
   const uint32_t row_key =
       kStochastic ? fmix32(seed ^ (static_cast<uint32_t>(row) * 0x9E3779B1u))

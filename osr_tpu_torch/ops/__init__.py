@@ -13,14 +13,18 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {
+    "approx_topk_threshold": "osr_tpu_torch.ops.topk",
+    "block_topk": "osr_tpu_torch.ops.topk",
     "block_topk_from_max": "osr_tpu_torch.ops.topk",
     "blocktopm_topk": "osr_tpu_torch.ops.topk",
     "dense_head_scores": "osr_tpu_torch.ops.bm25",
+    "fast_topk": "osr_tpu_torch.ops.topk",
     "fused_search": "osr_tpu_torch.ops.bm25",
     "fused_search_extract": "osr_tpu_torch.ops.bm25",
     "head_scores": "osr_tpu_torch.ops.bm25",
     "masked_head_blocktopm": "osr_tpu_torch.ops.head",
     "merge_chunks": "osr_tpu_torch.ops.bm25",
+    "merge_topk": "osr_tpu_torch.ops.topk",
     "scatter_query_head": "osr_tpu_torch.ops.bm25",
 }
 

@@ -146,6 +146,19 @@ def quantized_head_scores(
         return q @ decode_head(head).T
 
 
+def score_tolerance(
+    head: torch.Tensor, head_scales: torch.Tensor, qhead: torch.Tensor
+) -> torch.Tensor:
+    """(B, R) f32 bound on |kernel - plain| per score: 4 F 2^-24 sum_j
+    |q_j w_rj|, the f32 summation-order term of the host merge's slack
+    (the products are exact on both sides, only the order of the sums
+    differs)."""
+    q = scaled_query(qhead, head_scales, logical_width(head)).float()
+    with f32_matmul():
+        mag = q.abs() @ decode_head(head).abs().T
+    return mag.mul_(4 * q.shape[1] * 2.0**-24)
+
+
 def masked_head_scores_plain(head, head_scales, qhead, valid):
     """Plain twin of K1 (and of K3 without its maxima)."""
     hs = quantized_head_scores(head, head_scales, qhead)

@@ -12,12 +12,12 @@ wrappers of ``ops/quantize_kernels.py``: a CUDA tensor launches K7 / K8,
 a CPU tensor takes their plain versions. Everything else here is plain
 PyTorch on any device, as ``osr_tpu`` leaves it to XLA. Integer products
 are exact (``ops/matmul.py:exact_matmul``) and float32 products run with
-TF32 off. ``osr_tpu``'s XLA evaluates a division by a constant (``/ 7``,
-``/ 255``) as a multiply by its f32 reciprocal; the plain quantizers here
-do the same (:func:`_recip_mul`), so their codes and scales equal
-``osr_tpu``'s bit for bit. K7 divides (IEEE), as its plain version does:
-its scales may differ from ``osr_tpu``'s by one ulp, as ``osr_tpu``'s own
-NumPy twins do.
+TF32 off. ``osr_tpu``'s XLA evaluates a division by a constant (``/ 127``,
+``/ 7``, ``/ 255``) as a multiply by its f32 reciprocal; K7, its plain
+version and the plain quantizers here do the same
+(``quantize_kernels.recip_mul``), so their codes and scales equal
+``osr_tpu``'s bit for bit. The NumPy twins divide, as ``osr_tpu``'s own
+do: their scales may differ from the device quantizers' by one ulp.
 
 Results travel as (f32 values, int32 ids): ``osr_tpu``'s f32-packed result
 (``_pack_result``) is a transfer workaround the port does not carry.
@@ -42,12 +42,6 @@ from osr_tpu_torch.ops.topk import block_topk, topk
 _EPS = qk.EPS
 # Candidate widths from which selection takes the block-pruned path.
 BLOCK_SELECT_MIN_COLS = 16 * 128
-
-
-def _recip_mul(x: torch.Tensor, c: float) -> torch.Tensor:
-    """``x / c`` as ``osr_tpu``'s XLA evaluates it for a constant c: ``x``
-    times the reciprocal of c rounded to f32."""
-    return x * float(np.float32(1.0) / np.float32(c))
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +89,7 @@ def quantize_symmetric_int4(
         raise ValueError(f"int4 packing needs an even dim (got {d})")
     x = x.float()
     absmax = x.abs().amax(dim=-1).clamp_min(_EPS)
-    scales = _recip_mul(absmax, 7.0)
+    scales = qk.recip_mul(absmax, 7.0)
     codes = torch.round(x / scales[..., None]).clamp(-7, 7).to(torch.int32)
     return _pack_int4(codes), scales
 
@@ -117,7 +111,7 @@ def quantize_symmetric_int4_grouped(
     g = d // group_size
     xg = x.float().reshape(*x.shape[:-1], g, group_size)
     absmax = xg.abs().amax(dim=-1).clamp_min(_EPS)
-    scales = _recip_mul(absmax, 7.0)
+    scales = qk.recip_mul(absmax, 7.0)
     codes = (
         torch.round(xg / scales[..., None])
         .clamp(-7, 7)
@@ -136,7 +130,7 @@ def quantize_asymmetric(
     x = x.float()
     mins = x.amin(dim=-1)
     maxs = x.amax(dim=-1)
-    scales = _recip_mul(maxs - mins, 255.0).clamp_min(_EPS)
+    scales = qk.recip_mul(maxs - mins, 255.0).clamp_min(_EPS)
     values = torch.round(
         (x - mins[..., None]) / scales[..., None]
     ).clamp(0, 255).to(torch.uint8)
@@ -146,7 +140,9 @@ def quantize_asymmetric(
 def dequantize_asymmetric(
     values: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor
 ) -> torch.Tensor:
-    return values.float() * scales[..., None] + mins[..., None]
+    """``values * scales + mins`` per row in f32, as one fused
+    multiply-add per element, as ``osr_tpu``'s XLA fuses it on the CPU."""
+    return torch.addcmul(mins[..., None], values.float(), scales[..., None])
 
 
 # NumPy twins for host-side pre-quantization

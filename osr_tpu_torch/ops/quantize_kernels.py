@@ -3,7 +3,7 @@ hand-written Hopper kernels and their plain PyTorch versions (counterpart
 of ``osr_tpu/ops/pallas/quantize.py``).
 
 - :func:`quantize_symmetric` launches K7 on a CUDA tensor: ``scale =
-  max(absmax, 1e-8) / 127`` per row, then codes ``round(x / scale)``
+  max(absmax, 1e-8) * f32(1/127)`` per row, then codes ``round(x / scale)``
   (half to even), or, with ``stochastic=True``, ``floor(s) + (u <
   frac(s))`` clipped to [-127, 127]. Replaces
   ``osr_tpu/ops/pallas/quantize.py:_quant_kernel`` and
@@ -25,9 +25,11 @@ per element come from a counter-based hash of (seed, row, column),
 alike, so the two agree bit for bit. The seed is the caller's, or is drawn
 from an explicit ``torch.Generator``.
 
-Divisions are IEEE divisions on both sides (the plain version divides by
-a tensor: PyTorch multiplies by the reciprocal when a CUDA tensor is
-divided by a Python scalar), so codes and scales equal bit for bit. A
+The scale is ``osr_tpu``'s as its XLA computes ``absmax / 127.0``: a
+multiply by the reciprocal of 127 rounded to f32 (:func:`recip_mul`), on
+both sides. The codes divide by the scale tensor, an IEEE division on
+both sides, as XLA divides by a tensor. So codes and scales equal the
+kernel's and ``osr_tpu``'s bit for bit. A
 wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
 launches (plain calls are not counted).
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 EPS = 1e-8
@@ -86,10 +89,15 @@ def stochastic_bits(
     return _fmix32(key[:, None] ^ (cols.long() & _M32)[None, :])
 
 
+def recip_mul(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as ``osr_tpu``'s XLA evaluates it for a constant c: ``x``
+    times the reciprocal of c rounded to f32."""
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
 def row_scales(x: torch.Tensor) -> torch.Tensor:
-    """(N,) f32 ``max(absmax, 1e-8) / 127`` of each row, IEEE division."""
-    absmax = x.abs().amax(dim=-1).clamp_min(EPS)
-    return absmax / torch.full_like(absmax, 127.0)
+    """(N,) f32 ``max(absmax, 1e-8) * f32(1/127)`` of each row."""
+    return recip_mul(x.abs().amax(dim=-1).clamp_min(EPS), 127.0)
 
 
 def quantize_symmetric_plain(

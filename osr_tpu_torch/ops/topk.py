@@ -12,11 +12,16 @@ index order.
 counterpart: it is bit-identical to :func:`block_topk_from_max`, which the
 port runs in its place (no ``lax.cond`` to mirror, so no host sync and no
 second branch).
+
+:func:`fast_topk`, :func:`merge_topk` and :func:`approx_topk_threshold`
+are the selection variants the benchmark suites time
+(``benchmarks/suites.py:TopKSuite``); they give ``osr_tpu``'s indices as
+well as its values, ties included.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -27,6 +32,52 @@ def topk(scores: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     kk = min(k, scores.shape[-1])
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :kk], idx[..., :kk].int()
+
+
+def fast_topk(
+    scores: torch.Tensor, *, k: int, overfetch: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage top-k: the ``overfetch * k`` best of a bfloat16 copy,
+    then the exact f32 top-k of those candidates. Returned values are the
+    f32 scores. Both stages are stable sorts, so ties go to the lower
+    position, as ``lax.top_k``'s do in ``osr_tpu``."""
+    n = scores.shape[-1]
+    kk = min(k, n)
+    _, coarse = topk(scores.to(torch.bfloat16), k=min(kk * overfetch, n))
+    vals, pos = topk(torch.gather(scores, -1, coarse.long()), k=kk)
+    return vals, torch.gather(coarse, -1, pos.long())
+
+
+def merge_topk(
+    scores_parts: Sequence[torch.Tensor],  # each (B, k_i)
+    ids_parts: Sequence[torch.Tensor],  # each (B, k_i) global ids
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k of concatenated partial top-k results: (values, ids).
+    Ties go to the lower position in the concatenation, not to the lower
+    id."""
+    top, pos = topk(torch.cat(list(scores_parts), dim=-1), k=k)
+    return top, torch.gather(torch.cat(list(ids_parts), dim=-1), -1, pos.long())
+
+
+def approx_topk_threshold(
+    scores: torch.Tensor, *, k: int, sample_stride: int = 64
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sampling-threshold top-k: estimate the k-th value from every
+    ``sample_stride``-th score, mask scores below it less one (population)
+    standard deviation of the sample, then select exactly. With fewer than
+    4 k samples the selection is exact from the start."""
+    n = scores.shape[-1]
+    kk = min(k, n)
+    sample = scores[..., ::sample_stride]
+    m = sample.shape[-1]
+    if m < 4 * kk:
+        return topk(scores, k=kk)
+    sk = min(max(1, (kk * m) // n + 1), m)
+    thresh = topk(sample, k=sk)[0][..., -1:]
+    margin = torch.std(sample, dim=-1, keepdim=True, correction=0)
+    masked = torch.where(scores >= thresh - margin, scores, float("-inf"))
+    return topk(masked, k=kk)
 
 
 def block_topm(

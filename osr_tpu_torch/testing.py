@@ -1,7 +1,9 @@
 """Seeded synthetic corpora and queries (counterpart of
 ``osr_tpu/testing.py:SyntheticDataGenerator``): Zipf-distributed term
 streams, identical to ``osr_tpu``'s for the same seed, used by the tests
-and ``chip_smoke.py``.
+and ``chip_smoke.py``; and ``osr_tpu/testing.py``'s validators
+(:func:`spearman_correlation`, :class:`CorrectnessValidator`) and
+:class:`PerformanceBenchmark`, which the benchmark suites use.
 
 Also the repo's quality fixtures, on this package's modules:
 :func:`harvest_chunks` and :func:`build_dataset` are
@@ -16,11 +18,12 @@ from __future__ import annotations
 import hashlib
 import json
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
+from osr_tpu_torch.utils.timing import block_and_time
 
 
 class SyntheticDataGenerator:
@@ -80,6 +83,121 @@ class SyntheticDataGenerator:
 
     def embeddings(self, num_docs: int, dim: int = 768) -> np.ndarray:
         return synthetic_corpus_embeddings(num_docs, dim, seed=self.seed)
+
+
+def spearman_correlation(a: Sequence[float], b: Sequence[float]) -> float:
+    """Spearman rank correlation (scipy-free)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    if a.size < 2:
+        return 1.0
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    ra -= ra.mean()
+    rb -= rb.mean()
+    denom = np.sqrt((ra**2).sum() * (rb**2).sum())
+    return float((ra * rb).sum() / denom) if denom else 0.0
+
+
+class CorrectnessValidator:
+    """Numeric validators with the reference suite's acceptance thresholds."""
+
+    @staticmethod
+    def validate_scores(
+        got: np.ndarray,
+        want: np.ndarray,
+        atol: float = 1e-3,
+        rtol: float = 1e-3,
+    ) -> Dict[str, Any]:
+        got = np.asarray(got, dtype=np.float64)
+        want = np.asarray(want, dtype=np.float64)
+        abs_err = np.abs(got - want)
+        rel_err = abs_err / np.maximum(np.abs(want), 1e-9)
+        ok = bool(np.all((abs_err <= atol) | (rel_err <= rtol)))
+        return {
+            "passed": ok,
+            "max_abs_error": float(abs_err.max(initial=0.0)),
+            "max_rel_error": float(rel_err.max(initial=0.0)),
+        }
+
+    @staticmethod
+    def validate_topk_ranking(
+        got_ids: Sequence[int],
+        want_ids: Sequence[int],
+        min_overlap: float = 0.9,
+    ) -> Dict[str, Any]:
+        """Set overlap plus the Spearman correlation of the rank positions
+        of the common ids (correlating two already-sorted score lists
+        would always report about 1.0)."""
+        k = len(want_ids)
+        overlap = len(set(got_ids) & set(want_ids)) / k if k else 1.0
+        got_pos = {d: i for i, d in enumerate(got_ids)}
+        want_pos = {d: i for i, d in enumerate(want_ids)}
+        common = [d for d in want_ids if d in got_pos]
+        if len(common) >= 2:
+            corr = spearman_correlation(
+                [got_pos[d] for d in common],
+                [want_pos[d] for d in common],
+            )
+        else:
+            corr = 1.0
+        return {
+            "passed": overlap >= min_overlap,
+            "precision_at_k": overlap,
+            "rank_spearman": corr,
+        }
+
+    @staticmethod
+    def validate_quantization(
+        original: np.ndarray,
+        reconstructed: np.ndarray,
+        min_cosine: float = 0.95,
+    ) -> Dict[str, Any]:
+        original = np.asarray(original, dtype=np.float64)
+        reconstructed = np.asarray(reconstructed, dtype=np.float64)
+        mse = float(((original - reconstructed) ** 2).mean())
+        mae = float(np.abs(original - reconstructed).mean())
+        num = (original * reconstructed).sum(axis=-1)
+        den = np.linalg.norm(original, axis=-1) * np.linalg.norm(
+            reconstructed, axis=-1
+        )
+        cos = float((num / np.maximum(den, 1e-12)).mean())
+        return {
+            "passed": cos >= min_cosine,
+            "mse": mse,
+            "mae": mae,
+            "mean_cosine": cos,
+        }
+
+
+class PerformanceBenchmark:
+    """Time competing implementations on identical inputs. Each run waits
+    for the CUDA devices its result lives on (``utils/timing.py:
+    block_and_time``)."""
+
+    def __init__(self, warmup: int = 1, runs: int = 5):
+        self.warmup = warmup
+        self.runs = runs
+
+    def compare_implementations(
+        self,
+        implementations: Dict[str, Callable[[], Any]],
+        baseline: str,
+    ) -> Dict[str, Dict[str, float]]:
+        results: Dict[str, Dict[str, float]] = {}
+        for name, fn in implementations.items():
+            for _ in range(self.warmup):
+                block_and_time(fn)
+            times = [block_and_time(fn) for _ in range(self.runs)]
+            results[name] = {"median_s": float(np.median(times))}
+        base = results[baseline]["median_s"]
+        for name in results:
+            results[name]["speedup_vs_baseline"] = (
+                base / results[name]["median_s"]
+                if results[name]["median_s"]
+                else float("inf")
+            )
+        return results
 
 
 # The prose fixture (tools/bench_quality_at_scale.py).

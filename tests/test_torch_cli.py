@@ -107,8 +107,11 @@ def test_cli_ablate_and_bench(config_file, dataset_dir, tmp_path, capsys):
                  str(tmp_path / "bench.json")]) == 0
     slim = json.loads(capsys.readouterr().out)
     assert slim["throughput_qps"] > 0 and "batch_1" in slim["latency"]
-    with pytest.raises(SystemExit):  # the suites runner is not ported
+    # --config takes a benchmark spec: an experiment config is refused.
+    with pytest.raises(ValueError, match="Unknown benchmark config keys"):
         main(["bench", "--config", str(path)])
+    with pytest.raises(SystemExit):  # neither --dataset nor --config
+        main(["bench"])
 
 
 def test_platform_pins_every_retriever_block():

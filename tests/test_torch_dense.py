@@ -4,8 +4,9 @@ mode (patched in as tests/test_pallas_kernels.py patches them).
 
 Tolerances:
 - symmetric and int4: ids equal, scores within rtol 1e-6. The integer sums
-  are exact on both sides; only the query scales may differ by one f32 ulp
-  (osr_tpu's XLA multiplies by 1/127 where the port divides);
+  are exact on both sides, and the codes and scales equal osr_tpu's bit
+  for bit (both multiply by the f32 reciprocal of 127 or 7); only the
+  rescale's f32 products may round in another order;
 - asymmetric, int4_grouped and none: scores rank by rank within atol
   3e-5, the f32 summation-order bound 2 D 2^-24 sum_c |q_c d_c| at D = 256
   for unit-norm rows (sum_c |q_c d_c| <= 1); the four terms of the
@@ -263,7 +264,9 @@ def test_from_quantized_chunked_matches_unchunked(jax_ref, quantization):
 
 
 @pytest.mark.parametrize("quantization", sorted(QFN))
-def test_from_quantized_matches_constructor(quantization):
+def test_from_quantized_matches_constructor(jax_ref, quantization):
+    from osr_tpu.ops import quantize as jqz
+
     doc_ids, docs, queries = _corpus("padded")
     rows, scales = QFN[quantization](docs)
     pre = DenseSearchEngine.from_quantized(
@@ -271,8 +274,12 @@ def test_from_quantized_matches_constructor(quantization):
     )
     regular = DenseSearchEngine(doc_ids, docs, quantization=quantization,
                                 device="cpu")
-    # The NumPy twins divide where the device quantizers may multiply by
-    # the reciprocal: one ulp of scale at most.
+    # The device quantizers' scales are osr_tpu's XLA scales bit for bit;
+    # the NumPy twins divide, as osr_tpu's do: one ulp of scale at most.
+    want_scales = getattr(jqz, QFN[quantization].__name__[:-3])(docs)[1]
+    np.testing.assert_array_equal(
+        regular._scales.numpy(), np.asarray(want_scales)
+    )
     _same(pre.search_vectors(queries, top_k=9),
           regular.search_vectors(queries, top_k=9),
           atol=F32_ATOL if quantization == "int4_grouped" else None)

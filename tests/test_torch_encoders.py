@@ -9,12 +9,11 @@ HashingEncoder tests of tests/test_encoders.py and held against osr_tpu's.
   engines bit-equal document vectors. Unquantized (``use_quantization:
   False``) the routes' results equal osr_tpu's: ids equal except at
   near-ties, scores within the f32 atol 3e-5 of tests/test_torch_dense.py.
-  Quantized, they differ only through the quantizer's scale, which the
-  port divides in IEEE where osr_tpu's XLA multiplies by 1/127 (ROADMAP
-  Queue 3, "Division by a constant"): a hashed vector often holds a value
-  at exactly half of its row maximum, which lands on a rounding half step,
-  so a scale one ulp away rounds that code the other way. The test pins
-  every code difference to that cause.
+  Quantized, the codes, the scales and the results (ids, order and
+  scores) equal osr_tpu's exactly. A hashed vector often holds a value
+  at exactly half of its row maximum, a rounding half step, where a
+  scale one ulp away would round that code the other way: the port's K7
+  computes the scale as osr_tpu's XLA does, absmax times f32(1/127).
 """
 
 import hashlib
@@ -291,21 +290,23 @@ def test_hashing_routes_match_osr_tpu(route_corpus, encoder):
     docs = got_r.engine._docs.numpy()
     np.testing.assert_array_equal(docs, np.asarray(want_r.engine._docs))
 
-    # Quantized: every code that differs sits on a rounding half step of
-    # one of the two scales, which differ by at most one ulp.
+    # Quantized: codes and scales are osr_tpu's bit for bit, half steps
+    # included, and so are the results.
     got_r, want_r = built[True]
     t_codes, t_scales = (
         t.numpy() for t in tq.quantize_symmetric(torch.from_numpy(docs))
     )
     np.testing.assert_array_equal(got_r.engine._docs.numpy(), t_codes)
-    j_codes = np.asarray(want_r.engine._docs)
-    j_scales = np.asarray(jq.quantize_symmetric(docs)[1])
-    assert np.all(np.abs(t_scales.view(np.int32) - j_scales.view(np.int32)) <= 1)
-    rows, cols = np.nonzero(t_codes != j_codes)
-    assert np.all(t_scales[rows] != j_scales[rows])
-    assert np.all(np.abs(t_codes[rows, cols].astype(int) - j_codes[rows, cols]) == 1)
-    half = np.abs(docs[rows, cols] / j_scales[rows])
-    assert np.all(np.abs(half - np.floor(half) - 0.5) < 1e-4)
+    np.testing.assert_array_equal(t_codes, np.asarray(want_r.engine._docs))
+    np.testing.assert_array_equal(
+        t_scales, np.asarray(jq.quantize_symmetric(docs)[1])
+    )
+    half = np.abs(docs / t_scales[:, None])
+    assert np.any(np.abs(half - np.floor(half) - 0.5) < 1e-4)
+    got, want = (r.search(queries, top_k=10) for r in (got_r, want_r))
+    assert {q: list(r.items()) for q, r in got.items()} == {
+        q: list(r.items()) for q, r in want.items()
+    }
     hits = {
         name: sum(
             1 for i in range(30)

@@ -118,3 +118,92 @@ def test_pipeline_modules_import_without_jax_osr_tpu_or_transformers():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+SURFACE_PROBE = """
+import sys
+import osr_tpu_torch, osr_tpu_torch.index, osr_tpu_torch.retrieval
+import osr_tpu_torch.ops, osr_tpu_torch.benchmarks
+print("LAZY", sorted(m for m in sys.modules if m.startswith("osr_tpu_torch")))
+from osr_tpu_torch import tokenize, Tokenizer, __version__
+from osr_tpu_torch.index import (
+    tokenize, Tokenizer, SparseIndexBuilder, SparseIndex, HybridLayout,
+    pack_flat, choose_head_terms, tail_candidates_flat, merge_host,
+    dense_tail_scores,
+)
+from osr_tpu_torch.retrieval import (
+    SparseSearchEngine, DenseSearchEngine, RetrieverRegistry,
+    RetrievalService,
+)
+from osr_tpu_torch.ops import (
+    block_topk, fast_topk, merge_topk, approx_topk_threshold,
+)
+from osr_tpu_torch.benchmarks import (
+    BenchmarkResult, BenchmarkSuite, grade_performance, run_benchmark_suite,
+    generate_report, IntegrationRunner,
+)
+import osr_tpu_torch.benchmarks.framework, osr_tpu_torch.benchmarks.suites
+import osr_tpu_torch.benchmarks.integration, osr_tpu_torch.benchmarks.runner
+import osr_tpu_torch.benchmarks.quality
+import osr_tpu_torch.benchmarks.beir_adapter
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "yaml", "transformers",
+             "beir")
+    or m.startswith(("jax.", "jaxlib.", "osr_tpu.", "yaml.", "beir."))
+)
+print("LOADED", bad)
+"""
+
+
+def test_surface_and_benchmarks_import_without_jax_osr_tpu_or_yaml():
+    """The package exports of osr_tpu's import surface and the benchmark
+    modules load neither JAX, osr_tpu, PyYAML, transformers nor beir; the
+    package and its index, retrieval, ops and benchmarks subpackages load
+    no submodule when imported."""
+    out = subprocess.run(
+        [sys.executable, "-c", SURFACE_PROBE],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    lazy = [ln for ln in out.stdout.splitlines() if ln.startswith("LAZY")]
+    assert lazy == [
+        "LAZY ['osr_tpu_torch', 'osr_tpu_torch.benchmarks', "
+        "'osr_tpu_torch.index', 'osr_tpu_torch.ops', "
+        "'osr_tpu_torch.retrieval']"
+    ], out.stdout
+
+
+SURFACES = {
+    "osr_tpu": "osr_tpu_torch",
+    "osr_tpu.index": "osr_tpu_torch.index",
+    "osr_tpu.retrieval": "osr_tpu_torch.retrieval",
+    "osr_tpu.benchmarks": "osr_tpu_torch.benchmarks",
+}
+
+
+def test_every_osr_tpu_export_resolves_on_the_port():
+    """Every name in __all__ of osr_tpu, osr_tpu.index, osr_tpu.retrieval
+    and osr_tpu.benchmarks resolves on the matching osr_tpu_torch package
+    and stands in its __all__; the package version is osr_tpu's."""
+    import importlib
+
+    import pytest
+
+    pytest.importorskip("jax")
+    for ref_name, port_name in SURFACES.items():
+        ref = importlib.import_module(ref_name)
+        port = importlib.import_module(port_name)
+        for name in ref.__all__:
+            assert name in port.__all__, (port_name, name)
+            value = getattr(port, name)
+            assert value is not None, (port_name, name)
+            if name != "__version__":
+                assert getattr(value, "__name__", name) == name
+    assert importlib.import_module("osr_tpu_torch").__version__ == (
+        importlib.import_module("osr_tpu").__version__
+    )

@@ -5,12 +5,13 @@ as tests/test_pallas_kernels.py runs them.
 
 Tolerances:
 - codes (int8, packed int4, uint8) must be equal;
-- scales within rtol 1e-6: osr_tpu's XLA lowers ``/ 127`` (``/ 7``,
-  ``/ 255``) as a reciprocal multiply, the port divides, so the two may
-  differ by one f32 ulp; osr_tpu holds its Pallas kernels to XLA at the
-  same tolerance;
-- similarities and dequantized values within rtol 1e-6, for the same
-  reason (the integer sums are exact on both sides);
+- scales equal: osr_tpu's XLA lowers ``/ 127`` (``/ 7``, ``/ 255``) as a
+  multiply by the f32 reciprocal, and so does the port (K7's plain
+  version and the plain quantizers alike); codes divide by the scale
+  tensor on both sides, so they stay equal on rounding half steps too;
+- dequantized values equal; similarities within rtol 1e-6 (the integer
+  sums are exact on both sides, the rescale's f32 products may round in
+  another order);
 - float32 products (fp_search, grouped int4) within the f32 summation-order
   bound 2 D 2^-24 sum_c |q_c d_c|: both sides round the same operands, only
   the order of the sums differs.
@@ -102,7 +103,7 @@ def test_quantizers_match_osr_tpu(jax_ref, name, shape):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     assert got[0].dtype == (torch.int8 if name == "symmetric" else torch.uint8)
     for g, w in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize(
@@ -259,11 +260,36 @@ def test_plain_quantize_matches_pallas_interpret(jax_ref, n, d):
     before = dict(tqk.LAUNCHES)
     v_t, s_t = tqk.quantize_symmetric(torch.from_numpy(x))
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_p))
-    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_p), rtol=RTOL)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_p))
     recon_p = jpqz.dequantize_symmetric_pallas(v_p, s_p, interpret=True)
     recon_t = tqk.dequantize_symmetric(v_t, s_t)
-    np.testing.assert_allclose(recon_t.numpy(), np.asarray(recon_p), rtol=RTOL)
+    np.testing.assert_array_equal(recon_t.numpy(), np.asarray(recon_p))
     assert tqk.LAUNCHES == before  # the CPU path launches no kernel
+
+
+def test_plain_quantize_matches_osr_tpu_on_half_steps(jax_ref):
+    """K7's plain version against osr_tpu's XLA quantizer and its Pallas
+    kernel on rows built to land on rounding half steps (a value at half
+    of its row's maximum, and odd multiples of half a step), where a scale
+    one ulp away would round the code the other way."""
+    jnp, jqz, _, jpqz = jax_ref
+    rng = np.random.RandomState(11)
+    n = 4096
+    x = (rng.randn(n, 96) * rng.rand(n, 1) * 3).astype(np.float32)
+    absmax = np.abs(x).max(axis=1)
+    x[:, 5] = absmax / 2
+    x[:, 7] = -absmax * ((np.arange(n) % 127 + 0.5) / 127).astype(np.float32)
+    v_t, s_t = (t.numpy() for t in tqk.quantize_symmetric(torch.from_numpy(x)))
+    v_x, s_x = (np.asarray(a) for a in jqz.quantize_symmetric(jnp.asarray(x)))
+    v_p, s_p = (
+        np.asarray(a)
+        for a in jpqz.quantize_symmetric_pallas(jnp.asarray(x), interpret=True)
+    )
+    ieee = np.maximum(absmax, np.float32(1e-8)) / np.float32(127)
+    assert np.any(ieee != s_x)  # the inputs tell the two scales apart
+    for v, s in ((v_x, s_x), (v_p, s_p)):
+        np.testing.assert_array_equal(s_t, s)
+        np.testing.assert_array_equal(v_t, v)
 
 
 @pytest.mark.parametrize("b,n,d", [(128, 256, 128), (37, 300, 200)])
