@@ -78,7 +78,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    osr_tpu/configs/benchmarks.yaml with device="cuda" (the bm25, topk,
    quantization and storage suites) must pass every row, launch K1, K5,
    K7 and K8, and hold a passing head_kernel_parity row (K1 == K2 bit for
-   bit, K1 within the kernels' tolerance of the plain scores); (b)
+   bit, K1 within the kernels' tolerance of the plain scores); K7, K8 and
+   K5 then equal their plain versions bit for bit on the quantization
+   suite's own inputs and shapes (2,000 x 256, 32 queries); (b)
    run_quality_benchmark over phase 7's dataset, bm25 and tfidf at
    top_k=100 on cuda, must launch K2 and give IR metrics equal to the same
    run on the plain head; (c) BEIRCompatibleSearch(device="cuda") over that
@@ -1647,6 +1649,36 @@ QUALITY_METHODS = ("bm25", "tfidf")
 BEIR_QUERIES = 256
 
 
+def quantization_suite_kernels(cfg):
+    """Phase 8 (a)'s K7, K8 and K5 against their plain versions, bit for
+    bit, on the quantization suite's own inputs (its seeded embeddings and
+    query rows, rebuilt by its setup) at the shapes the suite gives them.
+    The suite's rows gate only on a cosine and a P@10 overlap, which a
+    kernel off by a code or a scale ulp would pass."""
+    from osr_tpu_torch.benchmarks.suites import QuantizationSuite
+    from osr_tpu_torch.ops import matmul as M
+    from osr_tpu_torch.ops import quantize_kernels as Q
+
+    suite = QuantizationSuite(**cfg.suites.get("quantization", {}),
+                              device="cuda")
+    suite.setup()
+    codes = {}
+    for what, a in (("docs", suite.embeddings), ("queries", suite.query_vecs)):
+        x = torch.from_numpy(a).cuda()
+        codes[what] = Q.quantize_symmetric(x)
+        exact(f"K7 on the quantization suite's {what} {tuple(x.shape)}",
+              codes[what], Q.quantize_symmetric_plain(x))
+    (d8, ds), (q8, qs) = codes["docs"], codes["queries"]
+    exact(f"K8 on the quantization suite's codes {tuple(d8.shape)}",
+          Q.dequantize_symmetric(d8, ds), Q.dequantize_symmetric_plain(d8, ds))
+    exact(f"K5 on the quantization suite's {tuple(q8.shape)} x "
+          f"{tuple(d8.shape)}", M.int8_similarity(q8, d8, qs, ds),
+          M.int8_similarity_plain(q8, d8, qs, ds))
+    log(f"  quantization suite inputs ({d8.shape[0]:,} x {d8.shape[1]}, "
+        f"{q8.shape[0]} queries): K7 (docs and queries), K8 and K5 equal "
+        "their plain versions bit for bit")
+
+
 def bench_spec(scratch):
     """Phase 8 (a): the repo's benchmark spec through run_from_config on
     cuda. Returns the run's launches."""
@@ -1691,6 +1723,7 @@ def bench_spec(scratch):
         f"max |K1 - plain| {m['max_abs_err_vs_plain']:.3e} within the "
         f"tolerance {m['within_tolerance_of_plain']}; K1 "
         f"{m['kernel_s'] * 1e3:.4f} ms, plain {m['plain_s'] * 1e3:.4f} ms")
+    quantization_suite_kernels(cfg)
     for name in ("bm25/throughput_vs_csr", "quantization/int8_matmul_speed",
                  "topk/topk_exact", "topk/topk_fast_bf16_rerank",
                  "topk/topk_approx_threshold", "storage/build",

@@ -85,46 +85,57 @@ def load_benchmark_config(path: Union[str, Path]) -> BenchmarkConfig:
     return config_from_dict(raw)
 
 
+_THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _limit_threads(stack, n: int) -> None:
+    """Reference benchmark_runner.py:117-119 thread-count control, held
+    by ``stack``: OMP/MKL_NUM_THREADS are set and restored on exit, so
+    the cap doesn't persist for the rest of the process or the
+    subprocesses it starts later. The env vars only bind pools not yet
+    initialized (NumPy's BLAS reads them at import, which has already
+    happened here); threadpoolctl re-pins live pools when available."""
+    saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+
+    def restore() -> None:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    stack.callback(restore)
+    for k in _THREAD_VARS:
+        os.environ[k] = str(n)
+    try:
+        import threadpoolctl
+    except ImportError:
+        logger.warning(
+            "num_threads=%d: BLAS pools were initialized before this "
+            "runner (threadpoolctl not installed); the limit applies only "
+            "to pools created during the run",
+            n,
+        )
+        return
+    stack.enter_context(threadpoolctl.threadpool_limits(limits=n))
+
+
 def run_from_config(cfg: BenchmarkConfig, device=None) -> Dict[str, Any]:
     """Seed, pin threads, run the selected suites on ``device`` (None
     means ``cuda``), write reports."""
     import contextlib
 
-    limiter = contextlib.nullcontext()
-    if cfg.num_threads is not None:
-        # Reference benchmark_runner.py:117-119 thread-count control. The
-        # env vars only bind pools not yet initialized (NumPy's BLAS reads
-        # them at import, which has already happened here); threadpoolctl
-        # re-pins live pools when available, otherwise warn that the knob
-        # covers subprocesses only. The limit is held as a context
-        # manager for the suite run only, so the cap doesn't silently
-        # persist for the rest of the process.
-        os.environ["OMP_NUM_THREADS"] = str(cfg.num_threads)
-        os.environ["MKL_NUM_THREADS"] = str(cfg.num_threads)
-        try:
-            import threadpoolctl
-
-            limiter = threadpoolctl.threadpool_limits(
-                limits=cfg.num_threads
-            )
-        except ImportError:
-            logger.warning(
-                "num_threads=%d: BLAS pools were initialized before this "
-                "runner (threadpoolctl not installed); the limit applies "
-                "only to pools created after this point",
-                cfg.num_threads,
-            )
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
-
-    suites = list(cfg.suites.keys()) or None
     runner = IntegrationRunner(
         out_dir=cfg.output_dir,
-        suites=suites,
+        suites=list(cfg.suites.keys()) or None,
         suite_kwargs=cfg.suites,
         device=device,
     )
-    with limiter:
+    with contextlib.ExitStack() as stack:
+        if cfg.num_threads is not None:
+            _limit_threads(stack, cfg.num_threads)
         overall = runner.run()
     overall["config"] = dataclasses.asdict(cfg)
     return overall

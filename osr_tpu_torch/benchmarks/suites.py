@@ -29,8 +29,8 @@ letter grades.
   ``torch.matmul`` with TF32 off.
 - ``TopKSuite``: stable-sort selections on the device; no kernel.
 
-Times on a CUDA device come from CUDA events; on the CPU from the host
-clock.
+Kernel rows are timed by ``utils/timing.py:device_seconds``: CUDA events
+on a CUDA device, the host clock on the CPU.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from __future__ import annotations
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,6 +55,7 @@ from osr_tpu_torch.testing import (
     SyntheticDataGenerator,
     spearman_correlation,
 )
+from osr_tpu_torch.utils.timing import device_seconds
 
 
 def _build_csr(index):
@@ -93,29 +94,6 @@ def _scipy_csr_baseline(index, queries_tf, w=None):
     if w is None:
         w = _build_csr(index)
     return w @ queries_tf.T  # (N, B)
-
-
-def device_seconds(
-    fn: Callable[[], object], device: torch.device, runs: int = 3
-) -> float:
-    """Mean seconds of one call of ``fn`` after one warmup call: CUDA
-    events around ``runs`` calls on a CUDA device, the host clock around
-    them on the CPU."""
-    fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        return (time.perf_counter() - t0) / runs
-    with torch.cuda.device(device):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(runs):
-            fn()
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / 1e3 / runs
 
 
 class BM25Suite(BenchmarkSuite):

@@ -2,8 +2,10 @@
 ``osr_tpu/testing.py:SyntheticDataGenerator``): Zipf-distributed term
 streams, identical to ``osr_tpu``'s for the same seed, used by the tests
 and ``chip_smoke.py``; and ``osr_tpu/testing.py``'s validators
-(:func:`spearman_correlation`, :class:`CorrectnessValidator`) and
-:class:`PerformanceBenchmark`, which the benchmark suites use.
+(:func:`spearman_correlation`, :class:`CorrectnessValidator`), which the
+benchmark suites use, and :class:`PerformanceBenchmark`, a public helper
+that nothing in the package calls (the suites time their rows with
+``utils/timing.py``).
 
 Also the repo's quality fixtures, on this package's modules:
 :func:`harvest_chunks` and :func:`build_dataset` are

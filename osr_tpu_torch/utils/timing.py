@@ -9,7 +9,8 @@ bench/core/benchmark_framework.py:75-114), ``MemoryMonitor`` (RSS sampling,
 CUDA note: kernels are launched asynchronously, so anything measured
 around device work must synchronize — ``block_and_time`` synchronizes every
 CUDA device that the thunk's result lives on, so the device queue can't
-hide behind async dispatch.
+hide behind async dispatch; ``device_seconds`` times device work with
+CUDA events instead, for calls too short for the host clock.
 """
 
 from __future__ import annotations
@@ -98,6 +99,30 @@ def time_fn(
         "max_s": float(np.max(times)),
         "runs": runs,
     }
+
+
+def device_seconds(
+    fn: Callable[[], object], device: torch.device, runs: int = 3
+) -> float:
+    """Mean seconds of one call of ``fn`` after one warmup call: CUDA
+    events around ``runs`` back-to-back calls on a CUDA device (no host
+    sync between them, unlike :func:`time_fn`), the host clock around
+    them on the CPU. The benchmark suites time their kernel rows so."""
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        return (time.perf_counter() - t0) / runs
+    with torch.cuda.device(device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / 1e3 / runs
 
 
 def percentiles(

@@ -487,6 +487,73 @@ def test_validators_match_osr_tpu(jax_ref):
         ) == JV.validate_quantization(a.reshape(5, 10), recon, **kw)
 
 
+def test_performance_benchmark_matches_osr_tpu(jax_ref):
+    """compare_implementations gives osr_tpu's keys for each
+    implementation on the same thunks (plain, torch and nested results),
+    a positive median, the baseline's speedup 1.0 and every other speedup
+    as the baseline's median over its own."""
+    from osr_tpu import testing as jt
+
+    from osr_tpu_torch.testing import PerformanceBenchmark
+
+    a = np.random.RandomState(5).randn(32, 32).astype(np.float32)
+    t = torch.from_numpy(a)
+    thunks = {
+        "numpy": lambda: a @ a,
+        "torch": lambda: t @ t,
+        "nested": lambda: (t @ t, {"x": [t + 1]}),
+    }
+    got = PerformanceBenchmark(warmup=1, runs=3).compare_implementations(
+        thunks, "numpy"
+    )
+    want = jt.PerformanceBenchmark(warmup=1, runs=3).compare_implementations(
+        thunks, "numpy"
+    )
+    assert list(got) == list(want) == list(thunks)
+    for name, row in got.items():
+        assert set(row) == set(want[name]) == {
+            "median_s", "speedup_vs_baseline"
+        }
+        assert row["median_s"] > 0
+        assert row["speedup_vs_baseline"] == (
+            got["numpy"]["median_s"] / row["median_s"]
+        )
+    assert got["numpy"]["speedup_vs_baseline"] == 1.0
+    assert want["numpy"]["speedup_vs_baseline"] == 1.0
+
+
+@pytest.mark.parametrize("before", [None, "3"])
+def test_run_from_config_scopes_thread_cap(monkeypatch, before):
+    """num_threads sets OMP/MKL_NUM_THREADS for the suite run only: the
+    run sees the cap, and the process's values (set or unset) are back
+    after it."""
+    import os
+
+    from osr_tpu_torch.benchmarks import runner as R
+
+    seen = {}
+
+    class Runner:
+        def __init__(self, **kwargs):
+            pass
+
+        def run(self):
+            seen.update({k: os.environ.get(k) for k in R._THREAD_VARS})
+            return {"all_passed": True}
+
+    monkeypatch.setattr(R, "IntegrationRunner", Runner)
+    for k in R._THREAD_VARS:
+        if before is None:
+            monkeypatch.delenv(k, raising=False)
+        else:
+            monkeypatch.setenv(k, before)
+    R.run_from_config(R.config_from_dict({"num_threads": 1}), device="cpu")
+    assert seen == {k: "1" for k in R._THREAD_VARS}
+    assert {k: os.environ.get(k) for k in R._THREAD_VARS} == {
+        k: before for k in R._THREAD_VARS
+    }
+
+
 def _run_suite(suite):
     suite.setup()
     try:
