@@ -110,12 +110,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and stochastic, as benchmarks/suites.py's quantization suite does) on
    the 1M corpus, counting K7 and K8, and time K7 and K8 there; then dense
    QPS at bench.py's own dense shape (the bench corpus size x 768,
-   B=4,096), for reference.
+   B=4,096), for reference;
+12. the sharded engines (osr_tpu_torch/parallel/) at the same widths:
+   (a) the script's own world of one rank under NCCL (a file:// store in
+   its scratch directory, destroyed at the end of the part), mesh (1, 1):
+   ShardedSparseSearchEngine over the FiQA-scale indexes at int8 top_k=50
+   (K2), top_k=1000 (K1), int4 (K3) and the extraction plan (narrow_m=8,
+   K4-i8 and K4-i4) over the 6,648 queries, each equal dict for dict to
+   the flat engine whose merge reads the same candidate scores (the
+   device merge; the host merge for extraction);
+   ShardedDenseSearchEngine over bench.py's dense shape (57,638 x 768,
+   4,096 query rows, top_k=50), symmetric (K7 + K5) and int4 (K7 + K6),
+   ids and scores equal to the flat engine bit for bit; and
+   ShardedHybridEngine (RRF, depth 100) equal to the flat HybridRetriever
+   over the same two legs; prints the sharded device step against the
+   flat one (CUDA events) and both engines' QPS (median of 3). (b) two
+   spawned ranks, both on cuda:0, under gloo (NCCL refuses two ranks on
+   one card), mesh (1, 2): the int8 head in 2 shards of 28,928 rows and
+   the dense corpus in 2 shards of 28,928 rows; each rank must launch K2
+   and K5 and return the flat engine's results (sparse dict for dict,
+   dense bit for bit); every process group has a 60 s timeout, and the
+   parent waits at most 300 s, then kills the ranks and fails with a
+   rank's traceback.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
 (with ``surface_launches`` and ``pipeline_launches``, phase 6's and phase
-7's launches, on K2's, K7's and K5's, and ``benchmarks_launches``, phase
-8's, on every kernel's),
+7's launches, on K2's, K7's and K5's, and ``benchmarks_launches`` and
+``sharded_launches``, phases 8's and 12's (both ranks of (b) included),
+on every kernel's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 """
@@ -2334,6 +2356,396 @@ def dense_phases(dev, bench_docs):
     return rows
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the sharded engines (osr_tpu_torch/parallel/)
+# ----------------------------------------------------------------------
+
+SHARD_GROUP_TIMEOUT_S = 60  # every process group's collective timeout
+SHARD_WAIT_S = 300  # the parent's wait for the two ranks of part (b)
+SHARDED_SPARSE = (
+    # (label, head dtype, top_k, engine options, the kernel it launches)
+    ("int8 top_k=50", "int8", TOP_K, {}, "head_blockmax_i8"),
+    ("int8 top_k=1000", "int8", DEEP_K, {}, "head_scores_i8"),
+    ("int4 top_k=50", "int4", TOP_K, {}, "head_blockmax_i4"),
+    ("int8 extraction", "int8", TOP_K,
+     dict(narrow_m=NARROW_M, narrow_backend="extract"), "head_blocktopm_i8"),
+    ("int4 extraction", "int4", TOP_K,
+     dict(narrow_m=NARROW_M, narrow_backend="extract"), "head_blocktopm_i4"),
+)
+SHARDED_DENSE = (("symmetric", "int8_similarity"), ("int4", "int4_similarity"))
+
+
+def index_state(index):
+    """The keyword arguments of convert.index_from_arrays for ``index``:
+    how part (b) hands the host index to its ranks."""
+    lay = index.layout
+    return dict(
+        head=lay.head, head_scales=lay.head_scales, post_ptr=lay.post_ptr,
+        post_rows=lay.post_rows, post_weights=lay.post_weights,
+        valid=lay.valid, num_docs=lay.num_docs, vocab_size=lay.vocab_size,
+        head_terms=lay.head_terms, head_dtype=lay.head_dtype,
+        vocabulary=dict(index.vocabulary), doc_ids=list(index.doc_ids),
+        method=index.method, idf=index.idf, doc_lengths=index.doc_lengths,
+        avgdl=index.avgdl, k1=index.k1, b=index.b,
+    )
+
+
+def add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def differing(got, want):
+    """Queries whose result dicts differ (ids or scores)."""
+    if set(got) != set(want):
+        fail("sharded and flat results cover different queries")
+    return sum(got[q] != want[q] for q in want)
+
+
+def sharded_step_inputs(sh, texts):
+    """One batch's inputs to the sharded device step on the card: this
+    rank's query slice and the whole batch's candidates (rows, cols)."""
+    from osr_tpu_torch.index import postings as P
+
+    lay = sh.index.layout
+    enc = sh.encode_queries(texts)
+    cand = P.tail_candidates_flat(
+        lay.post_ptr, lay.post_rows, lay.post_weights, enc.tail_ids,
+        enc.tail_counts, enc.tail_ptr, enc.head_ids.shape[0],
+        num_rows=sh.num_rows,
+    )
+    ids, w = sh._query_slice(enc)
+    return (ids, w, torch.from_numpy(cand.rows).cuda(),
+            torch.from_numpy(cand.cols).cuda())
+
+
+def run_sharded_step(sh, inputs, top_k):
+    """The sharded device step of one batch: shard step, merge over d,
+    candidate vector over the world, gather over q."""
+    from osr_tpu_torch.parallel import sharded_search
+
+    d = sh._dev
+    return sharded_search(
+        *inputs, d.head, d.head_scales, d.valid, comm=sh.comm,
+        head_terms=sh.index.layout.head_terms, k=top_k,
+        head_backend=sh.head_backend, block_prune=sh._block_prune(top_k),
+    )
+
+
+def sharded_step_ms(sh, flat, texts, top_k):
+    """The device step of one batch (CUDA events, median of 10): the
+    sharded engine's and the flat engine's fused_search, on the same
+    queries and candidates."""
+    from osr_tpu_torch.ops.bm25 import fused_search
+
+    inputs = sharded_step_inputs(sh, texts)
+    f = flat._dev
+    sharded = median_ms(lambda: run_sharded_step(sh, inputs, top_k), reps=10)
+    plain = median_ms(
+        lambda: fused_search(
+            *inputs, f.head, f.head_scales, f.valid,
+            head_terms=flat.index.layout.head_terms, k=top_k,
+            head_backend=flat.head_backend,
+        ),
+        reps=10,
+    )
+    return sharded, plain
+
+
+def median_qps(engine, queries, top_k, runs=3):
+    passes = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        engine.search(queries, top_k=top_k)
+        passes.append(len(queries) / (time.perf_counter() - t0))
+    return float(np.median(passes)), passes
+
+
+def sharded_world_of_one(indexes, queries, emb, scratch):
+    """Phase 12 (a): a world of one rank under NCCL, mesh (1, 1). Each
+    sharded engine must equal the flat engine on the same index: sparse
+    dict for dict (the standard plans the flat device merge, which reads
+    the same candidate scores; extraction the host merge), dense ids and
+    scores bit for bit, the hybrid (RRF) the flat HybridRetriever over the
+    same two legs. Returns (the sharded
+    engines' launches, the flat int8 top_k=50 results, the flat symmetric
+    dense arrays)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from osr_tpu_torch import RetrieverRegistry
+    from osr_tpu_torch.parallel import (
+        ShardedDenseSearchEngine,
+        ShardedHybridEngine,
+        ShardedSparseSearchEngine,
+        make_mesh,
+    )
+    from osr_tpu_torch.retrieval.engine import (
+        DenseSearchEngine,
+        SparseSearchEngine,
+    )
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{scratch / 'world1.pg'}", rank=0,
+        world_size=1, timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S),
+    )
+    try:
+        mesh = make_mesh(1)
+        launches, want_sparse = {}, None
+        texts = list(queries.values())[:BATCH]
+        for label, dtype, k, opts, kernel in SHARDED_SPARSE:
+            common = dict(batch_sizes=(BATCH,), cache_queries=False, **opts)
+            # The standard sharded step reads its candidates' head scores
+            # from the device scores, as the flat device merge does; the
+            # extraction plan reads them from the host, as the host merge.
+            flat = SparseSearchEngine(
+                indexes[dtype], device="cuda",
+                merge_backend="host" if opts else "device", **common,
+            )
+            want = flat.search(queries, top_k=k)
+            sh = ShardedSparseSearchEngine(indexes[dtype], mesh, **common)
+            if sh.comm.device.type != "cuda" or sh.head_backend != "cuda":
+                fail("the world of one does not run on the card under NCCL")
+            reset_all_launches()
+            got = sh.search(queries, top_k=k)
+            torch.cuda.synchronize()
+            counts = all_launches()
+            add_counts(launches, counts)
+            if counts[kernel] == 0:
+                fail(f"sharded {label} launched no {kernel}")
+            bad = differing(got, want)
+            if bad:
+                fail(f"sharded {label}: {bad} queries differ from the flat "
+                     "engine")
+            check_results(got, queries, k)
+            log(f"phase 12 (a) sharded {label}: equal to the flat engine "
+                f"dict for dict; launches "
+                f"{ {n: c for n, c in counts.items() if c} }")
+            if label == "int8 top_k=50":
+                want_sparse = want
+                step, flat_step = sharded_step_ms(sh, flat, texts, k)
+                qps, passes = median_qps(sh, queries, k)
+                flat_qps, flat_passes = median_qps(flat, queries, k)
+                log(f"phase 12 (a) device step int8 top_k={k}, B={BATCH}: "
+                    f"sharded (1, 1) {step:.4f} ms, flat {flat_step:.4f} ms; "
+                    f"QPS median of 3: sharded {qps:.1f} "
+                    f"{[round(x, 1) for x in passes]}, flat {flat_qps:.1f} "
+                    f"{[round(x, 1) for x in flat_passes]}")
+            del flat, sh
+            torch.cuda.empty_cache()
+
+        doc_ids = [str(i) for i in range(emb.shape[0])]
+        qv = emb[:DENSE_QUERIES]
+        want_dense = None
+        for quantization, kernel in SHARDED_DENSE:
+            s1, i1 = DenseSearchEngine(
+                doc_ids, emb, quantization=quantization, device="cuda"
+            ).search_vectors(qv, top_k=TOP_K)
+            reset_all_launches()
+            sd = ShardedDenseSearchEngine(
+                doc_ids, emb, mesh, quantization=quantization
+            )
+            s2, i2 = sd.search_vectors(qv, top_k=TOP_K)
+            torch.cuda.synchronize()
+            counts = all_launches()
+            add_counts(launches, counts)
+            for name in (kernel, "quantize_symmetric"):
+                if counts[name] == 0:
+                    fail(f"sharded dense {quantization} launched no {name}")
+            if not (np.array_equal(i1, i2) and np.array_equal(s1, s2)):
+                fail(f"sharded dense {quantization} differs from the flat "
+                     "engine")
+            check_dense_results(s2, i2, len(qv), len(doc_ids))
+            log(f"phase 12 (a) sharded dense {quantization} "
+                f"({emb.shape[0]} x {emb.shape[1]}, {len(qv)} queries, "
+                f"top_k={TOP_K}): ids and scores equal to the flat engine "
+                f"bit for bit; launches "
+                f"{ {n: c for n, c in counts.items() if c} }")
+            if quantization == "symmetric":
+                want_dense = (s1, i1)
+            del sd
+            torch.cuda.empty_cache()
+
+        hy = RetrieverRegistry.create({"type": "hybrid", "params": {
+            "sparse_weight": 1.0, "dense_weight": 1.0, "fusion": "rrf",
+            "fusion_depth": SURFACE_TOP_K, "embedding_dim": emb.shape[1],
+            "device": "cuda", "cache_dir": None}})
+        hy.sparse.engine = SparseSearchEngine(
+            indexes["int8"], device="cuda", batch_sizes=(BATCH,),
+            cache_queries=False, merge_backend="device",
+        )
+        hy.dense.engine = DenseSearchEngine(
+            indexes["int8"].doc_ids, emb, quantization="symmetric",
+            device="cuda",
+        )
+        want = hy.search(queries, top_k=SURFACE_TOP_K)
+        del hy
+        reset_all_launches()
+        shy = ShardedHybridEngine(
+            indexes["int8"], emb, mesh, sparse_weight=1.0, dense_weight=1.0,
+            fusion_depth=SURFACE_TOP_K, fusion="rrf", batch_sizes=(BATCH,),
+        )
+        got = shy.search(queries, top_k=SURFACE_TOP_K)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        add_counts(launches, counts)
+        bad = differing(got, want)
+        if bad:
+            fail(f"sharded hybrid: {bad} queries differ from the flat hybrid")
+        log(f"phase 12 (a) sharded hybrid RRF (top_k={SURFACE_TOP_K}): equal "
+            f"to the flat HybridRetriever over the same legs dict for dict; "
+            f"launches { {n: c for n, c in counts.items() if c} }")
+        del shy
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches, want_sparse, want_dense
+
+
+def two_rank_worker(rank, init_file, index_file, emb_file, queries, results):
+    """Phase 12 (b): one of two ranks on the one card, under gloo, mesh
+    (1, 2); puts (rank, True, its report) or (rank, False, a traceback)
+    on ``results``."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        from osr_tpu_torch.convert import index_from_arrays
+        from osr_tpu_torch.parallel import (
+            ShardedDenseSearchEngine,
+            ShardedSparseSearchEngine,
+            make_mesh,
+        )
+
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank,
+            world_size=2, timeout=timedelta(seconds=SHARD_GROUP_TIMEOUT_S),
+        )
+        try:
+            mesh = make_mesh(2)
+            with open(index_file, "rb") as f:
+                index = index_from_arrays(**pickle.load(f))
+            emb = np.load(emb_file)
+            sh = ShardedSparseSearchEngine(
+                index, mesh, batch_sizes=(BATCH,), cache_queries=False
+            )
+            reset_all_launches()
+            sparse = sh.search(queries, top_k=TOP_K)
+            torch.cuda.synchronize()
+            counts = all_launches()
+            inputs = sharded_step_inputs(sh, list(queries.values())[:BATCH])
+            step = median_ms(
+                lambda: run_sharded_step(sh, inputs, TOP_K), reps=5
+            )
+            rows_sparse, transport = sh.rows_local, str(sh.comm.device)
+            del sh, inputs
+            torch.cuda.empty_cache()
+            reset_all_launches()
+            sd = ShardedDenseSearchEngine(
+                [str(i) for i in range(emb.shape[0])], emb, mesh
+            )
+            dense = sd.search_vectors(emb[:DENSE_QUERIES], top_k=TOP_K)
+            torch.cuda.synchronize()
+            add_counts(counts, all_launches())
+            report = dict(
+                launches=counts, sparse=sparse, dense=dense, step_ms=step,
+                rows=(rows_sparse, sd.rows_local), transport=transport,
+            )
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, report))
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def sharded_two_ranks(index8, emb, queries, want_sparse, want_dense, scratch):
+    """Phase 12 (b): two spawned ranks on cuda:0 under gloo split the
+    FiQA int8 head (2 x 28,928 rows) and the dense corpus (2 x 28,819
+    rows); each must launch K2 and K5, and both must return the flat
+    engine's results. Returns the two ranks' launches, summed."""
+    import multiprocessing as mp
+    import pickle
+    import queue
+
+    index_file = scratch / "index8.pkl"
+    with open(index_file, "wb") as f:
+        pickle.dump(index_state(index8), f)
+    emb_file = scratch / "emb.npy"
+    np.save(emb_file, emb)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [
+        ctx.Process(
+            target=two_rank_worker,
+            args=(r, str(scratch / "world2.pg"), str(index_file),
+                  str(emb_file), queries, results),
+        )
+        for r in range(2)
+    ]
+    for p in procs:
+        p.start()
+    reports = {}
+    try:
+        deadline = time.monotonic() + SHARD_WAIT_S
+        while len(reports) < 2:
+            try:
+                rank, ok, payload = results.get(
+                    timeout=max(1.0, deadline - time.monotonic())
+                )
+            except queue.Empty:
+                fail(f"phase 12 (b): ranks {sorted({0, 1} - set(reports))} "
+                     f"did not answer in {SHARD_WAIT_S} s")
+            if not ok:
+                fail(f"phase 12 (b): rank {rank} failed:\n{payload}")
+            reports[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    total = {}
+    for rank in (0, 1):
+        rep = reports[rank]
+        for name in ("head_blockmax_i8", "int8_similarity"):
+            if rep["launches"][name] == 0:
+                fail(f"phase 12 (b): rank {rank} launched no {name}")
+        bad = differing(rep["sparse"], want_sparse)
+        if bad:
+            fail(f"phase 12 (b): rank {rank}: {bad} queries differ from the "
+                 "flat engine")
+        s, i = rep["dense"]
+        if not (np.array_equal(s, want_dense[0])
+                and np.array_equal(i, want_dense[1])):
+            fail(f"phase 12 (b): rank {rank}'s dense results differ from the "
+                 "flat engine")
+        add_counts(total, rep["launches"])
+        log(f"phase 12 (b) rank {rank} of 2 on one card (gloo, transport "
+            f"{rep['transport']}): shard rows sparse/dense {rep['rows']}; "
+            f"sparse int8 top_k={TOP_K} equal to the flat engine dict for "
+            f"dict, dense symmetric bit for bit; launches "
+            f"{ {n: c for n, c in rep['launches'].items() if c} }; device "
+            f"step (shard + gloo collectives) {rep['step_ms']:.4f} ms")
+    return total
+
+
+def sharded_phase(indexes, queries, emb, scratch):
+    """Phase 12: (a) then (b); returns each kernel's sharded launches."""
+    t0 = time.perf_counter()
+    launches, want_sparse, want_dense = sharded_world_of_one(
+        indexes, queries, emb, scratch
+    )
+    add_counts(launches, sharded_two_ranks(
+        indexes["int8"], emb, queries, want_sparse, want_dense, scratch
+    ))
+    log(f"phase 12 (sharded engines) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2518,7 +2930,7 @@ def main():
         f"p95 {np.percentile(lats, 95):.3f} ms"
     )
     bench_docs = index8.num_docs
-    del eng8, eng4, lat_engine, index8, index4, d, ids, w
+    del eng8, eng4, lat_engine, d, ids, w  # phase 12 reuses the indexes
     torch.cuda.empty_cache()
     log(f"sparse phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2536,11 +2948,22 @@ def main():
     log(f"1M path done at {time.perf_counter() - t_start:.1f} s")
 
     rows += dense_phases(dev, bench_docs)
+    log(f"dense phases done at {time.perf_counter() - t_start:.1f} s")
+
+    from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
+
+    bemb = synthetic_corpus_embeddings(bench_docs, dim=DENSE_DIM, seed=3)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as scratch:
+        sharded = sharded_phase(
+            {"int8": index8, "int4": index4}, queries, bemb, Path(scratch)
+        )
+    del bemb, index8, index4
     for r in rows:
         if r["name"] in surface:
             r["surface_launches"] = surface[r["name"]]
             r["pipeline_launches"] = pipeline[r["name"]]
         r["benchmarks_launches"] = benchmarks[r["name"]]
+        r["sharded_launches"] = sharded.get(r["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

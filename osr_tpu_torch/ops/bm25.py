@@ -99,6 +99,52 @@ def head_scores(
         return q @ w.T
 
 
+def head_step_scores(
+    q_head_ids: torch.Tensor,  # (B, Qh) int32, padding >= head_terms
+    q_head_weights: torch.Tensor,  # (B, Qh) f32
+    head: torch.Tensor,  # (R, F) on the search device
+    head_scales: Optional[torch.Tensor],  # (F,) or None
+    valid: torch.Tensor,  # (R,) bool
+    *,
+    head_terms: int,
+    head_backend: str,  # 'cuda' | 'torch'
+    with_block_max: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The scoring half of :func:`fused_search`: ((B, R) f32 head scores
+    with invalid rows at -inf, (B, G) per-128-row block maxima or None).
+
+    ``head_backend='cuda'`` scores an int8/int4 head on a CUDA device with
+    the kernels: K2 (int8) or K3 (int4), whose maxima come with the scores,
+    where ``with_block_max`` asks for them or the head is int4 (K3 has no
+    scores-only form), else K1. 'torch' runs the plain version and reduces
+    the maxima from its scores when asked."""
+    qhead = scatter_query_head(
+        q_head_ids, q_head_weights, head_terms=head_terms
+    )
+    quantized = head.dtype in (torch.int8, torch.uint8)
+    bmax = None
+    if head_backend == "cuda":
+        if not quantized or head.device.type != "cuda":
+            raise ValueError(
+                "head_backend='cuda' needs an int8 or int4 head on a CUDA "
+                f"device (got {head.dtype} on {head.device})"
+            )
+        if with_block_max or head.dtype == torch.uint8:
+            hs, bmax = head_ops.masked_head_scores_blockmax(
+                head, head_scales, qhead, valid
+            )
+        else:
+            hs = head_ops.masked_head_scores(head, head_scales, qhead, valid)
+    elif head_backend == "torch":
+        hs = head_scores(head, head_scales, qhead)
+        hs = hs.masked_fill(~valid[None, :], NEG_INF)
+    else:
+        raise ValueError(f"Unknown head_backend: {head_backend}")
+    if with_block_max and bmax is None:
+        bmax = block_max(hs)
+    return hs, bmax
+
+
 def fused_search(
     q_head_ids: torch.Tensor,  # (B, Qh) int32, padding >= head_terms
     q_head_weights: torch.Tensor,  # (B, Qh) f32
@@ -112,12 +158,12 @@ def fused_search(
     k: int,
     head_backend: str,  # 'cuda' | 'torch'
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The batched device search step.
+    """The batched device step.
 
     Returns (head_top_scores (B, k') f32, head_top_rows (B, k') int32,
     cand_head_scores (M,) f32), k' = min(k, R). ``head_backend='cuda'``
     scores an int8/int4 head on a CUDA device with the kernels, 'torch'
-    with the plain version (the engine chooses).
+    with the plain version (the engine chooses; :func:`head_step_scores`).
 
     The selection is the exact block-pruned one wherever it applies
     (:func:`block_prune_applies`), else one exact sort. ``osr_tpu``'s
@@ -133,41 +179,47 @@ def fused_search(
     are tail-touched carry a head-only score; the merge masks them and
     takes their exact totals from the candidate channel.
     """
-    qhead = scatter_query_head(
-        q_head_ids, q_head_weights, head_terms=head_terms
+    kk = min(k, head.shape[0])
+    use_block_prune = block_prune_applies(head.shape[0], kk)
+    hs, bmax = head_step_scores(
+        q_head_ids, q_head_weights, head, head_scales, valid,
+        head_terms=head_terms, head_backend=head_backend,
+        with_block_max=use_block_prune,
     )
-    r = head.shape[0]
-    kk = min(k, r)
-    use_block_prune = block_prune_applies(r, kk)
-    quantized = head.dtype in (torch.int8, torch.uint8)
-    bmax = None
-    if head_backend == "cuda":
-        if not quantized or head.device.type != "cuda":
-            raise ValueError(
-                "head_backend='cuda' needs an int8 or int4 head on a CUDA "
-                f"device (got {head.dtype} on {head.device})"
-            )
-        if use_block_prune or head.dtype == torch.uint8:
-            # int4 has no scores-only kernel: K3's maxima go unused when
-            # the selection is not block-pruned.
-            hs, bmax = head_ops.masked_head_scores_blockmax(
-                head, head_scales, qhead, valid
-            )
-        else:
-            hs = head_ops.masked_head_scores(head, head_scales, qhead, valid)
-    elif head_backend == "torch":
-        hs = head_scores(head, head_scales, qhead)
-        hs = hs.masked_fill(~valid[None, :], NEG_INF)
-    else:
-        raise ValueError(f"Unknown head_backend: {head_backend}")
     if use_block_prune:
-        if bmax is None:
-            bmax = block_max(hs)
         head_top, head_rows = block_topk_from_max(hs, bmax, k=kk)
     else:
         head_top, head_rows = topk(hs, k=kk)
     cand_head = hs[cand_flat_cols.long(), cand_flat_rows.long()]
     return head_top, head_rows, cand_head
+
+
+def head_step_blocktopm(
+    q_head_ids: torch.Tensor,  # (B, Qh) int32, padding >= head_terms
+    q_head_weights: torch.Tensor,  # (B, Qh) f32
+    head: torch.Tensor,  # (R, F) int8 or (R, F/2) uint8 int4-packed
+    head_scales: torch.Tensor,  # (F,) f32
+    valid: torch.Tensor,  # (R,) bool
+    *,
+    head_terms: int,
+    narrow_m: int = 8,
+    head_backend: str,  # 'cuda' (K4) | 'torch' (its plain twin)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The extraction half of :func:`fused_search_extract`: each 128-row
+    block's top ``narrow_m`` ((B, G, m) values, (B, G, m) int32 rows),
+    from K4 on the card or its plain twin."""
+    qhead = scatter_query_head(
+        q_head_ids, q_head_weights, head_terms=head_terms
+    )
+    if head_backend == "cuda":
+        return head_ops.masked_head_blocktopm(
+            head, head_scales, qhead, valid, m=narrow_m
+        )
+    if head_backend == "torch":
+        return head_ops.masked_head_blocktopm_plain(
+            head, head_scales, qhead, valid, narrow_m
+        )
+    raise ValueError(f"Unknown head_backend: {head_backend}")
 
 
 def fused_search_extract(
@@ -192,19 +244,10 @@ def fused_search_extract(
     k') f32, rows (B, k') int32, unsafe: a 0-dim bool tensor). When unsafe
     is set the caller must re-run the standard program; when it is clear,
     the engine's final results equal the standard program's."""
-    qhead = scatter_query_head(
-        q_head_ids, q_head_weights, head_terms=head_terms
+    vals, rows = head_step_blocktopm(
+        q_head_ids, q_head_weights, head, head_scales, valid,
+        head_terms=head_terms, narrow_m=narrow_m, head_backend=head_backend,
     )
-    if head_backend == "cuda":
-        vals, rows = head_ops.masked_head_blocktopm(
-            head, head_scales, qhead, valid, m=narrow_m
-        )
-    elif head_backend == "torch":
-        vals, rows = head_ops.masked_head_blocktopm_plain(
-            head, head_scales, qhead, valid, narrow_m
-        )
-    else:
-        raise ValueError(f"Unknown head_backend: {head_backend}")
     return blocktopm_topk(vals, rows, k=k)
 
 

@@ -256,6 +256,16 @@ def _select_topk(
     return topk(sims, k=kk)
 
 
+def int8_scores_symmetric(
+    queries_fp32: torch.Tensor,  # (B, D)
+    docs_int8: torch.Tensor,  # (N, D) int8
+    doc_scales: torch.Tensor,  # (N,)
+) -> torch.Tensor:
+    """The (B, N) f32 scores of :func:`int8_search_symmetric`."""
+    q_int8, q_scales = quantize_symmetric(queries_fp32)
+    return int8_dot_product_batch(q_int8, docs_int8, q_scales, doc_scales)
+
+
 def int8_search_symmetric(
     queries_fp32: torch.Tensor,  # (B, D)
     docs_int8: torch.Tensor,  # (N, D) int8
@@ -264,9 +274,21 @@ def int8_search_symmetric(
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize the queries symmetrically, score exactly, top-k."""
+    return _select_topk(
+        int8_scores_symmetric(queries_fp32, docs_int8, doc_scales), k
+    )
+
+
+def int4_scores_symmetric(
+    queries_fp32: torch.Tensor,  # (B, D)
+    docs_packed: torch.Tensor,  # (N, D/2) uint8, signed nibbles
+    doc_scales: torch.Tensor,  # (N,)
+) -> torch.Tensor:
+    """The (B, N) f32 scores of :func:`int4_search_symmetric`."""
     q_int8, q_scales = quantize_symmetric(queries_fp32)
-    sims = int8_dot_product_batch(q_int8, docs_int8, q_scales, doc_scales)
-    return _select_topk(sims, k)
+    return int8_dot_product_batch(
+        q_int8, unpack_int4_signed(docs_packed), q_scales, doc_scales
+    )
 
 
 def int4_search_symmetric(
@@ -277,11 +299,9 @@ def int4_search_symmetric(
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """int4 corpus search: int8 queries against the decoded corpus."""
-    q_int8, q_scales = quantize_symmetric(queries_fp32)
-    sims = int8_dot_product_batch(
-        q_int8, unpack_int4_signed(docs_packed), q_scales, doc_scales
+    return _select_topk(
+        int4_scores_symmetric(queries_fp32, docs_packed, doc_scales), k
     )
-    return _select_topk(sims, k)
 
 
 def int4_search_symmetric_grouped(
@@ -292,10 +312,27 @@ def int4_search_symmetric_grouped(
     k: int,
     group_size: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Group-wise int4 search. Per-group doc scales do not fold into a
-    rank-1 epilogue, so the contraction runs per group, (G, B, Dg) x (G,
-    N, Dg) -> (G, B, N) in f32, then sum_g acc[g] * scales[:, g]. Queries
-    round to bf16, as ``osr_tpu`` rounds them."""
+    """Group-wise int4 search (:func:`int4_scores_symmetric_grouped`),
+    top-k."""
+    return _select_topk(
+        int4_scores_symmetric_grouped(
+            queries_fp32, docs_packed, doc_scales, group_size=group_size
+        ),
+        k,
+    )
+
+
+def int4_scores_symmetric_grouped(
+    queries_fp32: torch.Tensor,  # (B, D)
+    docs_packed: torch.Tensor,  # (N, D/2) uint8, signed nibbles
+    doc_scales: torch.Tensor,  # (N, G) per-(row, group) scales
+    *,
+    group_size: int = 128,
+) -> torch.Tensor:
+    """Group-wise int4 scores, (B, N) f32. Per-group doc scales do not
+    fold into a rank-1 epilogue, so the contraction runs per group, (G, B,
+    Dg) x (G, N, Dg) -> (G, B, N) in f32, then sum_g acc[g] * scales[:,
+    g]. Queries round to bf16, as ``osr_tpu`` rounds them."""
     b, d = queries_fp32.shape
     g = d // group_size
     codes = unpack_int4_signed(docs_packed)
@@ -307,8 +344,7 @@ def int4_search_symmetric_grouped(
     cg = codes.float().reshape(n, g, group_size).transpose(0, 1)
     with f32_matmul():
         acc = torch.bmm(qg, cg.transpose(1, 2))  # (G, B, N)
-        sims = torch.einsum("gbn,ng->bn", acc, doc_scales.float())
-    return _select_topk(sims, k)
+        return torch.einsum("gbn,ng->bn", acc, doc_scales.float())
 
 
 def int8_search_asymmetric(
@@ -319,8 +355,22 @@ def int8_search_asymmetric(
     *,
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Asymmetric quantized search. With q = uq*qs + qm and d = ud*ds + dm
-    per row, q.d expands into one exact integer product plus rank-1 terms:
+    """Asymmetric quantized search (:func:`int8_scores_asymmetric`),
+    top-k."""
+    return _select_topk(
+        int8_scores_asymmetric(queries_fp32, docs_u8, doc_scales, doc_mins), k
+    )
+
+
+def int8_scores_asymmetric(
+    queries_fp32: torch.Tensor,  # (B, D)
+    docs_u8: torch.Tensor,  # (N, D) uint8
+    doc_scales: torch.Tensor,  # (N,)
+    doc_mins: torch.Tensor,  # (N,)
+) -> torch.Tensor:
+    """Asymmetric quantized scores, (B, N) f32. With q = uq*qs + qm and
+    d = ud*ds + dm per row, q.d expands into one exact integer product
+    plus rank-1 terms:
 
         q.d = qs*ds*(uq.ud) + qs*dm*sum(uq) + ds*qm*sum(ud) + D*qm*dm
     """
@@ -329,19 +379,22 @@ def int8_search_asymmetric(
     acc = exact_matmul(uq, docs_u8).float()
     sum_uq = uq.float().sum(dim=-1)  # (B,), exact below 2^24
     sum_ud = docs_u8.float().sum(dim=-1)  # (N,)
-    sims = (
+    return (
         acc * qs[:, None] * doc_scales[None, :]
         + (qs * sum_uq)[:, None] * doc_mins[None, :]
         + qm[:, None] * (doc_scales * sum_ud)[None, :]
         + dim * qm[:, None] * doc_mins[None, :]
     )
-    return _select_topk(sims, k)
+
+
+def fp_scores(queries: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
+    """Full-precision scores: one f32 product (TF32 off), (B, N)."""
+    with f32_matmul():
+        return queries.float() @ docs.float().T
 
 
 def fp_search(
     queries: torch.Tensor, docs: torch.Tensor, *, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-precision dense search: one f32 product (TF32 off), top-k."""
-    with f32_matmul():
-        sims = queries.float() @ docs.float().T
-    return _select_topk(sims, k)
+    """Full-precision dense search: :func:`fp_scores`, top-k."""
+    return _select_topk(fp_scores(queries, docs), k)

@@ -215,6 +215,25 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _head_backend(head_backend: str, head_dtype: str, device) -> str:
+    """The sparse engines' head backend: 'auto' takes the CUDA kernels for
+    an int8/int4 head on a CUDA device and the plain version otherwise;
+    'cuda' insists on the kernels; 'torch' is the plain version."""
+    quantized = head_dtype in ("int8", "int4")
+    if head_backend == "auto":
+        head_backend = (
+            "cuda" if quantized and device.type == "cuda" else "torch"
+        )
+    if head_backend == "cuda" and not (quantized and device.type == "cuda"):
+        raise ValueError(
+            "head_backend='cuda' needs an int8 or int4 head on a CUDA "
+            f"device (head {head_dtype}, device {device})"
+        )
+    if head_backend not in ("cuda", "torch"):
+        raise ValueError(f"Unknown head_backend: {head_backend}")
+    return head_backend
+
+
 def _upload(arr, device: torch.device) -> torch.Tensor:
     """Host array (or tensor) -> ``device``. A host array goes through a
     pinned buffer on CUDA, so the copy does not stall the host."""
@@ -299,21 +318,9 @@ class SparseSearchEngine:
         self.narrow_backend = narrow_backend
         self.cand_filter_per_query = int(cand_filter_per_query)
         layout = index.layout
-        quantized = layout.head_dtype in ("int8", "int4")
-        if head_backend == "auto":
-            head_backend = (
-                "cuda" if quantized and self.device.type == "cuda" else "torch"
-            )
-        if head_backend == "cuda" and not (
-            quantized and self.device.type == "cuda"
-        ):
-            raise ValueError(
-                "head_backend='cuda' needs an int8 or int4 head on a CUDA "
-                f"device (head {layout.head_dtype}, device {self.device})"
-            )
-        if head_backend not in ("cuda", "torch"):
-            raise ValueError(f"Unknown head_backend: {head_backend}")
-        self.head_backend = head_backend
+        self.head_backend = head_backend = _head_backend(
+            head_backend, layout.head_dtype, self.device
+        )
         if (
             narrow_backend == "extract"
             and head_backend == "cuda"
@@ -748,6 +755,22 @@ DENSE_QUANTIZATIONS = (
 KERNEL_QUANTIZATIONS = ("symmetric", "int4")  # the modes K5/K6 score
 
 
+def dense_kernel_scores(
+    q: torch.Tensor,  # (B, D) f32 queries
+    docs: torch.Tensor,  # (N, D) int8, or (N, D/2) uint8 int4-packed
+    scales: torch.Tensor,  # (N,) f32
+) -> torch.Tensor:
+    """The (B, N) f32 scores of :func:`dense_kernel_step`: K7 on the
+    queries, then K5 (int8 corpus) or K6 (int4)."""
+    q8, qs = qz.quantize_symmetric(q)
+    similarity = (
+        matmul_ops.int4_similarity
+        if docs.dtype == torch.uint8
+        else matmul_ops.int8_similarity
+    )
+    return similarity(q8, docs, qs, scales)
+
+
 def dense_kernel_step(
     q: torch.Tensor,  # (B, D) f32 queries
     docs: torch.Tensor,  # (N, D) int8, or (N, D/2) uint8 int4-packed
@@ -763,13 +786,7 @@ def dense_kernel_step(
     The kernels mask ragged B and N, so nothing is padded: the (B, N)
     similarity covers exactly the real rows (a zero-scale padding row
     would score 0 and could displace a document scoring below 0)."""
-    q8, qs = qz.quantize_symmetric(q)
-    similarity = (
-        matmul_ops.int4_similarity
-        if docs.dtype == torch.uint8
-        else matmul_ops.int8_similarity
-    )
-    return qz._select_topk(similarity(q8, docs, qs, scales), k)
+    return qz._select_topk(dense_kernel_scores(q, docs, scales), k)
 
 
 def _dense_backend(backend: str, quantization: str, device) -> str:
@@ -947,22 +964,27 @@ class DenseSearchEngine:
             self._mins = _rows(mins, 0, n, self.device)
         return self
 
+    def _scores(self, q, docs, scales, mins) -> torch.Tensor:
+        """One batch against one set of rows: (B, N) f32 scores on the
+        device."""
+        if self.backend == "cuda":
+            return dense_kernel_scores(q, docs, scales)
+        if self.quantization == "symmetric":
+            return qz.int8_scores_symmetric(q, docs, scales)
+        if self.quantization == "int4":
+            return qz.int4_scores_symmetric(q, docs, scales)
+        if self.quantization == "int4_grouped":
+            return qz.int4_scores_symmetric_grouped(
+                q, docs, scales, group_size=self.dim // scales.shape[1]
+            )
+        if self.quantization == "asymmetric":
+            return qz.int8_scores_asymmetric(q, docs, scales, mins)
+        return qz.fp_scores(q, docs)
+
     def _step(self, q, docs, scales, mins, k: int):
         """One batch against one set of rows: ((B, k') f32, (B, k')
         int32) on the device."""
-        if self.backend == "cuda":
-            return dense_kernel_step(q, docs, scales, k)
-        if self.quantization == "symmetric":
-            return qz.int8_search_symmetric(q, docs, scales, k=k)
-        if self.quantization == "int4":
-            return qz.int4_search_symmetric(q, docs, scales, k=k)
-        if self.quantization == "int4_grouped":
-            return qz.int4_search_symmetric_grouped(
-                q, docs, scales, k=k, group_size=self.dim // scales.shape[1]
-            )
-        if self.quantization == "asymmetric":
-            return qz.int8_search_asymmetric(q, docs, scales, mins, k=k)
-        return qz.fp_search(q, docs, k=k)
+        return qz._select_topk(self._scores(q, docs, scales, mins), k)
 
     def dispatch_vectors(self, query_vectors, top_k: int):
         """Enqueue the device step for (B, dim) f32 query vectors (array or

@@ -94,6 +94,13 @@ def get_optimization_recommendations(
             "dense kernels run on it; prefer batch sizes >= "
             f"{recommended_batch_size(caps)} to amortize dispatch."
         )
+        if caps.get("num_devices", 1) > 1:
+            recs["sharding"] = (
+                f"{caps['num_devices']} CUDA cards: use "
+                "osr_tpu_torch.parallel.ShardedSparseSearchEngine to shard "
+                "the index over the 'd' mesh axis (one rank a card, e.g. "
+                "torchrun --nproc-per-node N)."
+            )
     else:
         recs["scoring"] = (
             "No CUDA card detected: pass device='cpu' to run the plain "

@@ -183,12 +183,13 @@ SURFACES = {
     "osr_tpu.index": "osr_tpu_torch.index",
     "osr_tpu.retrieval": "osr_tpu_torch.retrieval",
     "osr_tpu.benchmarks": "osr_tpu_torch.benchmarks",
+    "osr_tpu.parallel": "osr_tpu_torch.parallel",
 }
 
 
 def test_every_osr_tpu_export_resolves_on_the_port():
-    """Every name in __all__ of osr_tpu, osr_tpu.index, osr_tpu.retrieval
-    and osr_tpu.benchmarks resolves on the matching osr_tpu_torch package
+    """Every name in __all__ of osr_tpu, osr_tpu.index, osr_tpu.retrieval,
+    osr_tpu.benchmarks and osr_tpu.parallel resolves on the matching osr_tpu_torch package
     and stands in its __all__; the package version is osr_tpu's."""
     import importlib
 
@@ -207,3 +208,41 @@ def test_every_osr_tpu_export_resolves_on_the_port():
     assert importlib.import_module("osr_tpu_torch").__version__ == (
         importlib.import_module("osr_tpu").__version__
     )
+
+
+PARALLEL_PROBE = """
+import sys
+import osr_tpu_torch.parallel
+print("LAZY", sorted(m for m in sys.modules if m.startswith("osr_tpu_torch")))
+from osr_tpu_torch.parallel import (
+    make_mesh, pick_mesh_shape, ShardedSparseSearchEngine,
+    ShardedDenseSearchEngine, ShardedHybridEngine, sharded_search,
+    sharded_search_extract,
+)
+import osr_tpu_torch.parallel.mesh, osr_tpu_torch.parallel.sharded
+import torch.distributed as dist
+print("GROUP", dist.is_available() and dist.is_initialized())
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes")
+    or m.startswith(("jax.", "jaxlib.", "osr_tpu."))
+)
+print("LOADED", bad)
+"""
+
+
+def test_parallel_imports_without_jax_osr_tpu_or_a_process_group():
+    """osr_tpu_torch.parallel loads no submodule when imported, and its
+    modules load neither JAX nor osr_tpu and start no process group."""
+    out = subprocess.run(
+        [sys.executable, "-c", PARALLEL_PROBE],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert "LAZY ['osr_tpu_torch', 'osr_tpu_torch.parallel']" in lines, lines
+    assert "GROUP False" in lines, lines
+    assert "LOADED []" in lines, lines
