@@ -5,8 +5,13 @@ recorded in PERF.md).
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. build the hand-written kernels (osr_tpu_torch/csrc: head_wgmma.cu,
-   similarity_wgmma.cu, quantize.cu) with nvcc, one process per source,
-   all at once; print each kernel's registers and shared memory (ptxas,
+   similarity_wgmma.cu, quantize.cu) with nvcc and the host runtime
+   (csrc/host_runtime.cc) with g++, one process per source, all at once;
+   fail unless the runtime loads from build/osr_tpu_torch/ (no engine on
+   the card runs without it); walk the tail postings of a 67,108,864-row
+   index (rows past 2^24, 1,024 queries) through tail_candidates_flat,
+   which must take the runtime and equal the NumPy body bit for bit, and
+   print both times; print each kernel's registers and shared memory (ptxas,
    plus the dynamic shared memory of the TMA kernels), failing if ptxas
    serialized a wgmma pipeline; check that the SASS of head_wgmma.cu's
    five kernels (K1, K2, K4-i8, K3, K4-i4) holds HGMMA and UTMALDG (wgmma
@@ -90,7 +95,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    rows, build seconds and warm QPS;
 9. the 1M path: tools/bench_scaling.py's recipe, 1,000,000 docs over a
    400,000-term vocabulary, int8 head F=2,048, 2,048 queries at top_k=50,
-   B=2,048, through three engines: (x) extraction in 2 row chunks of
+   B=2,048: first the batch's tail walk six times (the first call and
+   the median of the later ones), then through three engines: (x)
+   extraction in 2 row chunks of
    500,096 (K4), (s) the standard chunked program (K2), (f) one unchunked
    sweep (K2). (x) must equal (s) dict for dict, (f) must match (s), and a
    plain chunked engine must match (f) on 256 queries with the merge
@@ -140,9 +147,15 @@ Prints the card's name and power limit, a JSON line of per-kernel numbers
 on every kernel's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
+
+``python3 chip_smoke.py --host-stages [--tree DIR]`` times only the
+sparse path's host stages (one FiQA-scale batch stage by stage, and the
+FiQA and 1M tail walks, first batch and later ones) for the port of this
+checkout or of the checkout DIR, to compare two commits in one call.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -185,6 +198,13 @@ M1_DOCS = 1_000_000
 M1_VOCAB = 400_000
 M1_QUERIES = 2_048  # one batch of B = 2,048
 M1_CHUNK = 500_000  # score_chunk_rows: 2 chunks of 500,096 rows
+# The walker check past 2^24 rows: the tail postings of a 67,108,864-row
+# index (row chunks lift osr_tpu's 2^24 cap), 50,000 tail terms with
+# Zipf-like document frequencies, about 10M postings, 1,024 queries.
+WALK_ROWS = 1 << 26
+WALK_TERMS = 50_000
+WALK_POSTINGS = 10_000_000
+WALK_QUERIES = 1_024
 DENSE_KERNELS = {
     "int8_similarity": "osr_tpu/ops/pallas/matmul.py:24",
     "int4_similarity": "osr_tpu/ops/pallas/matmul.py:36",
@@ -351,6 +371,171 @@ def median_ms(fn, reps, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# ----------------------------------------------------------------------
+# The host runtime (csrc/host_runtime.cc)
+# ----------------------------------------------------------------------
+
+
+def host_line(native):
+    """The host's CPU (its /proc/cpuinfo identity, and lscpu's model name
+    where /proc leaves it unknown) and the runtime's thread count."""
+    info = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    model = info.get("model name", "unknown")
+    if model in ("", "unknown"):
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            model = re.search(r"Model name:\s*(.+)", out).group(1).strip()
+        except (OSError, subprocess.SubprocessError, AttributeError):
+            pass
+    ident = ", ".join(f"{k} {info[k]}" for k in (
+        "vendor_id", "cpu family", "model", "stepping", "cpu MHz"
+    ) if k in info)
+    return (f"host CPU {model} ({ident}; {len(os.sched_getaffinity(0))} "
+            f"cores usable); runtime threads {native.get_num_threads()}")
+
+
+def check_host_runtime():
+    """Load the port's host runtime; fail unless it is the library built
+    from csrc/host_runtime.cc under build/osr_tpu_torch/."""
+    from osr_tpu_torch import native
+    from osr_tpu_torch.ops import _build
+
+    try:
+        lib = native.library()
+    except ImportError as e:
+        fail(str(e))
+    if lib.path != _build.host_target() or lib.path.parent != _build.BUILD_DIR:
+        fail(f"the host runtime was loaded from {lib.path}, not from "
+             f"{_build.host_target()}")
+    log(f"host runtime: {lib.path} ({' '.join(_build.HOST_FLAGS)}); "
+        f"{host_line(native)}")
+
+
+def walk_posting_set(seed=24):
+    """Tail postings of a WALK_ROWS-row index: rows unique and ascending
+    per term, the first terms' last rows at the top of the range, so
+    the radix walk needs its third 12-bit digit. Weights are multiples of
+    1/16 below 4 and query counts 1 or 2, so every sum is exact in
+    float32: the runtime's float32 sums and the NumPy body's float64 ones
+    then agree bit for bit in any order, and the check holds the rows,
+    their grouping and the contributions summed."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, WALK_TERMS + 1, dtype=np.float64) ** 0.8
+    df = np.maximum(1, WALK_POSTINGS / ranks / np.sum(1 / ranks))
+    term = np.repeat(np.arange(WALK_TERMS, dtype=np.int64),
+                     df.astype(np.int64))
+    rows = rng.integers(0, WALK_ROWS, size=term.size, dtype=np.int64)
+    rows[:WALK_TERMS] = WALK_ROWS - 1 - np.arange(WALK_TERMS)
+    key = np.unique(term * WALK_ROWS + rows)
+    term, rows = key // WALK_ROWS, key % WALK_ROWS
+    post_ptr = np.zeros(WALK_TERMS + 1, dtype=np.int64)
+    np.cumsum(np.bincount(term, minlength=WALK_TERMS), out=post_ptr[1:])
+    weights = (rng.integers(1, 64, size=rows.size) / 16).astype(np.float32)
+    # Queries: 4-12 distinct tail terms each, frequent terms favoured.
+    ids, counts, ptr = [], [], [0]
+    for _ in range(WALK_QUERIES):
+        t = np.unique(
+            (WALK_TERMS * rng.random(rng.integers(4, 13)) ** 2).astype(np.int32)
+        )
+        ids.append(t)
+        counts.append(rng.integers(1, 3, size=t.size).astype(np.float32))
+        ptr.append(ptr[-1] + t.size)
+    return (post_ptr, rows.astype(np.int32), weights, np.concatenate(ids),
+            np.concatenate(counts), np.array(ptr, dtype=np.int64))
+
+
+def walker_past_2_pow_24():
+    """The tail walk over an index whose rows reach past 2^24: through
+    tail_candidates_flat it must take the runtime (counted) and equal the
+    NumPy body bit for bit. Prints both times."""
+    from osr_tpu_torch import native
+    from osr_tpu_torch.index import postings as P
+
+    t0 = time.perf_counter()
+    case = walk_posting_set()
+    gen_s = time.perf_counter() - t0
+    post_ptr, post_rows, _, ids, _, _ = case
+    walked = int((post_ptr[ids + 1] - post_ptr[ids]).sum())
+    walk = native.tail_candidates_native
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return walk(*args)
+
+    native_ms = []
+    native.tail_candidates_native = counted
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = P.tail_candidates_flat(
+                *case, WALK_QUERIES, num_rows=WALK_ROWS, use_native=True
+            )
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        native.tail_candidates_native = walk
+    if len(calls) != 3:
+        fail(f"walker past 2^24: the runtime took {len(calls)} of 3 walks")
+    t0 = time.perf_counter()
+    want = P.tail_candidates_flat(
+        *case, WALK_QUERIES, num_rows=WALK_ROWS, use_native=False
+    )
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    same = got.total == want.total and all(
+        getattr(got, n).tobytes() == getattr(want, n).tobytes()
+        for n in ("rows", "cols", "tail", "ptr")
+    )
+    if not same:
+        fail("walker past 2^24: the runtime's candidates differ from the "
+             "NumPy body's")
+    if int(got.rows.max()) < 1 << 24:
+        fail("walker past 2^24: no candidate row reaches 2^24")
+    log(f"walker past 2^24 ({WALK_ROWS} rows, {post_rows.size} postings "
+        f"over {WALK_TERMS} terms, made in {gen_s:.1f} s; {WALK_QUERIES} "
+        f"queries walk {walked} postings into {got.total} candidates, top "
+        f"row {int(got.rows.max())}): the runtime equals the NumPy body bit "
+        f"for bit; runtime {native_ms[0]:.3f} ms first, "
+        f"{float(np.median(native_ms[1:])):.3f} ms median of the 2 later; "
+        f"NumPy body {numpy_ms:.3f} ms")
+
+
+def tail_walk_ms(index, texts, reps=6):
+    """Wall ms of the tail walk of one batch of ``texts`` over ``index``,
+    ``reps`` times in a row (the first call at a new size pays for its
+    scratch pages)."""
+    from osr_tpu_torch.index.postings import tail_candidates_flat
+    from osr_tpu_torch.index.tokenizer import Tokenizer
+    from osr_tpu_torch.retrieval.encoding import (
+        QueryEncoder,
+        encode_query_batch,
+    )
+
+    lay = index.layout
+    enc = encode_query_batch(
+        QueryEncoder(Tokenizer(index.vocabulary)), texts, len(texts),
+        lay.head_terms,
+    )
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        tail_candidates_flat(
+            lay.post_ptr, lay.post_rows, lay.post_weights, enc.tail_ids,
+            enc.tail_counts, enc.tail_ptr, len(texts), num_rows=lay.num_rows,
+        )
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def walk_line(label, ms):
+    return (f"{label} tail walk: first batch {ms[0]:.3f} ms, median of the "
+            f"{len(ms) - 1} later {float(np.median(ms[1:])):.3f} ms; all "
+            f"{[round(m, 3) for m in ms]}")
 
 
 # ----------------------------------------------------------------------
@@ -981,6 +1166,8 @@ def million_path(dev):
         fail("1M (f): the unchunked engine is chunked")
     if not eng["x"]._use_extract_chunked(TOP_K):
         fail("1M (x): the extraction plan does not apply")
+    texts = list(queries.values())
+    log(walk_line(f"1M, B={M1_QUERIES},", tail_walk_ms(index, texts)))
     results, counts = {}, {}
     for key, kernel in (("x", "head_blocktopm_i8"), ("s", "head_blockmax_i8"),
                         ("f", "head_blockmax_i8")):
@@ -1018,7 +1205,6 @@ def million_path(dev):
     del plain
     torch.cuda.empty_cache()
 
-    texts = list(queries.values())
     enc = eng["x"].encode_queries(texts)
     ids = torch.from_numpy(enc.head_ids).to(dev)
     w = torch.from_numpy(enc.head_weights).to(dev)
@@ -2746,11 +2932,82 @@ def sharded_phase(indexes, queries, emb, scratch):
     return launches
 
 
+def host_stages():
+    """``--host-stages``: only the host stages of the sparse path, for
+    comparing the runtimes of two checkouts in one call (``--tree``
+    imports the port from another checkout). One FiQA-scale batch stage
+    by stage on an engine whose head step is the plain version (no kernel
+    to build; the host stages are the same), the tail walk of that batch
+    six times, then the 1M index's tail walk, first batch and later
+    ones."""
+    import osr_tpu_torch
+    from osr_tpu_torch import native
+    from osr_tpu_torch.index.builder import SparseIndexBuilder
+    from osr_tpu_torch.retrieval.engine import SparseSearchEngine
+    from osr_tpu_torch.testing import SyntheticDataGenerator
+
+    lib = native.library()
+    log(f"port {Path(osr_tpu_torch.__file__).parent}; host runtime "
+        f"{getattr(lib, 'path', None) or lib._name}; {host_line(native)}")
+    corpus = SyntheticDataGenerator(seed=42).zipf_corpus(
+        NUM_DOCS, VOCAB, avg_len=130, word_prefix="t", min_len=5
+    )
+    queries = SyntheticDataGenerator(seed=6).queries(
+        NUM_QUERIES, VOCAB, avg_terms=11, word_prefix="t", min_terms=2
+    )
+    index = SparseIndexBuilder(head_dtype="int8").build(corpus)
+    del corpus
+    texts = list(queries.values())[:BATCH]
+    log(walk_line(f"FiQA, B={BATCH}, first of the process,",
+                  tail_walk_ms(index, texts)))
+    eng = SparseSearchEngine(
+        index, device="cuda", batch_sizes=(BATCH,), cache_queries=False,
+        head_backend="torch",
+    )
+    eng.search(queries, top_k=TOP_K)
+    stages = median_stages(eng, texts, TOP_K)
+    log(f"FiQA one batch stage by stage (int8, top_k={TOP_K}, B={BATCH}, "
+        f"plain head step, ms, median of 3): "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    del eng, index
+    torch.cuda.empty_cache()
+    gen = SyntheticDataGenerator(seed=42)
+    m1_queries = gen.queries(
+        M1_QUERIES, M1_VOCAB, avg_terms=11, word_prefix="t", min_terms=2
+    )
+    corpus = gen.zipf_corpus(
+        M1_DOCS, M1_VOCAB, avg_len=130, word_prefix="t", min_len=5
+    )
+    index = SparseIndexBuilder(head_dtype="int8").build(corpus)
+    del corpus
+    log(walk_line(f"1M, B={M1_QUERIES},",
+                  tail_walk_ms(index, list(m1_queries.values()))))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from osr_tpu_torch import native
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--host-stages", action="store_true",
+        help="time only the sparse path's host stages (see host_stages)",
+    )
+    parser.add_argument(
+        "--tree", type=Path,
+        help="with --host-stages: the checkout whose port to import",
+    )
+    args = parser.parse_args()
+    if args.host_stages:
+        if args.tree is not None:
+            sys.path.insert(0, str(args.tree.resolve()))
+        log(f"card: {card_line()}")
+        host_stages()
+        return 0
+    if args.tree is not None:
+        parser.error("--tree goes with --host-stages")
     from osr_tpu_torch.index.builder import SparseIndexBuilder
     from osr_tpu_torch.ops import _build
     from osr_tpu_torch.ops.bm25 import fused_search, fused_search_extract
@@ -2764,12 +3021,14 @@ def main():
 
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    log(f"kernel and host runtime build: {time.perf_counter() - t0:.1f} s "
+        f"(nvcc for sm_90a and {_build._cxx()}, in parallel)")
+    check_host_runtime()
+    walker_past_2_pow_24()
     regs, smem = kernel_resources()
     log(f"registers per thread (ptxas): {regs}")
     log(f"shared memory per block, bytes (ptxas static + dynamic): {smem}")
     log(f"TMA + wgmma kernels' SASS instruction counts: {check_sass()}")
-    log(f"host runtime: native={native.available()}")
 
     for name in HEAD_KERNELS:
         err = check_kernel(name, *small_case(name, dev))

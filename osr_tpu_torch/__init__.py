@@ -3,9 +3,10 @@
 Batched, exact top-k BM25/TF-IDF search over the hybrid dense-head /
 postings-tail index, with the head scored on the GPU by hand-written CUDA
 kernels (``csrc/``) and the postings tail and exact merge on the host
-(``index/postings.py`` and the shared C++ runtime in ``native/``); and
-quantized dense retrieval (``DenseSearchEngine``), whose query
-quantization and int8/int4 similarity are hand-written CUDA kernels too.
+(``index/postings.py`` and the package's C++ host runtime,
+``csrc/host_runtime.cc``); and quantized dense retrieval
+(``DenseSearchEngine``), whose query quantization and int8/int4
+similarity are hand-written CUDA kernels too.
 Above the engines: the config-driven ``RetrieverRegistry`` (sparse, dense,
 learned-sparse and hybrid retrievers, weighted or RRF fusion), the
 ``HashingEncoder``, the index cache, the ``DocumentStore`` and the

@@ -189,7 +189,7 @@ class HashingEncoder:
         ngrams: int = 2,
         idf: bool = False,
         native: str = "auto",  # 'auto' | 'force' | 'off' — the C++ core
-        #   (native/osr_native.cc:henc_*) featurizes/hashes/accumulates
+        #   (csrc/host_runtime.cc:henc_*) featurizes/hashes/accumulates
         #   with bit-identical vectors (re.findall tokenization stays in
         #   Python for exact unicode semantics); 'auto' falls back to pure
         #   Python when the runtime cannot be loaded.
@@ -338,7 +338,8 @@ class HashingEncoder:
     @classmethod
     def load(cls, path, native: str = "auto") -> "HashingEncoder":
         """Restore an encoder saved with :meth:`save` (any backend —
-        vectors are bit-identical across native/pure-Python)."""
+        vectors are bit-identical across the native and pure-Python
+        backends)."""
         with np.load(path) as z:
             enc = cls(
                 dim=int(z["dim"]),

@@ -12,8 +12,9 @@ Per batch:
 3. :func:`merge_host`: totals = head + tail per candidate, head-top
    entries that are tail-touched are masked, exact top-k per query.
 
-Each step runs in the shared C++ runtime when it is available; the NumPy
-bodies here are the reference and give the same results.
+Each step runs in the port's C++ host runtime (``native.py``) when it is
+available; the NumPy bodies here are the reference and give the same
+results.
 """
 
 from __future__ import annotations
@@ -68,16 +69,9 @@ def tail_candidates_flat(
     if len(tail_ids) == 0:
         return _empty_candidates(batch_size)
 
-    # The native walker refuses 2^24 rows or more (its radix keys are 32
-    # bits); the NumPy body below keys on int64 and takes any row count.
-    if (
-        use_native
-        and num_rows < native.WALKER_MAX_ROWS
-        and native.available()
-    ):
+    if use_native and native.available():
         rows, cols, tail, qptr, total = native.tail_candidates_native(
-            post_ptr, post_rows, post_weights,
-            tail_ids, tail_counts, tail_ptr, num_rows,
+            post_ptr, post_rows, post_weights, tail_ids, tail_counts, tail_ptr,
         )
         ptr = np.zeros(batch_size + 1, dtype=np.int64)
         ptr[: nq + 1] = qptr

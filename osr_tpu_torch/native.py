@@ -1,179 +1,138 @@
-"""ctypes bindings to the shared C++ host runtime (``native/osr_native.cc``).
+"""ctypes bindings to the port's C++ host runtime,
+``osr_tpu_torch/csrc/host_runtime.cc``.
 
-The port's counterpart of ``osr_tpu/native/__init__.py``, limited to the
-functions its search path and its HashingEncoder call. The library is ``native/libosrnative.so``
-at the repository root (or the file ``OSR_TPU_NATIVE_LIB`` names); it is
-built with ``make -C native`` on first use when absent or older than its
-sources. Nothing loads or builds at import: each function loads the
-library when first called and raises ImportError when it cannot, and every
-caller then takes its NumPy reference path, as in ``osr_tpu``.
+The port's counterpart of ``osr_tpu.native``, limited to the functions
+its search path, its index builder and its HashingEncoder call. The
+runtime is the port's own copy of those loops: it compiles at first use
+with ``$CXX`` (or ``g++``) into ``build/osr_tpu_torch/``
+(``ops/_build.py:build_host``), and every entry point carries the
+``osrh_`` prefix, so a process that also loads ``osr_tpu``'s runtime never
+mixes the two. It leaves the process's allocator alone, and its tail
+walker takes any int32 row count.
 
-Two properties of the shared runtime hold for every process that loads it:
-
-- Loading it runs a process-wide ``mallopt`` (``M_MMAP_THRESHOLD`` and
-  ``M_TRIM_THRESHOLD`` raised to 1 GiB) from a static initializer in
-  ``native/osr_native.cc``, which changes glibc's allocator for the whole
-  process, PyTorch included.
-- Its tail walker sorts rows with 12-bit radix digits and shifts an int32
-  by up to 36 bits when rows reach 2^24, which is undefined behaviour, so
-  :func:`tail_candidates_native` refuses ``num_rows >= 2**24`` before any
-  call.
+Nothing loads or builds at import: :func:`library` builds and loads the
+runtime when first called and raises ImportError, with the compiler's
+output, when it cannot (the failure is remembered for the life of the
+process). On the CPU every caller then takes its NumPy body, as in
+``osr_tpu``; the engines on a CUDA device call :func:`library` and raise
+instead (``retrieval/engine.py:host_runtime``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import threading
+import types
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from osr_tpu_torch.index.layout import bf16_round
+from osr_tpu_torch.ops import _build
 
-_REPO_ROOT = Path(__file__).resolve().parents[1]
-_ABI_VERSION = 2  # osr_abi_version() in native/osr_native.cc
-WALKER_MAX_ROWS = 1 << 24
+_ABI_VERSION = 1  # osrh_abi_version() in csrc/host_runtime.cc
+_PREFIX = "osrh_"
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None
 _error: Optional[str] = None
 
 
-def _lib_path() -> Path:
-    return Path(
-        os.environ.get(
-            "OSR_TPU_NATIVE_LIB", _REPO_ROOT / "native" / "libosrnative.so"
-        )
-    )
-
-
-def _build_if_needed(path: Path) -> None:
-    src_dir = path.parent
-    inputs = [src_dir / "osr_native.cc", src_dir / "Makefile"]
-    src_mtime = max(
-        (p.stat().st_mtime for p in inputs if p.exists()), default=0.0
-    )
-    if path.exists() and path.stat().st_mtime >= src_mtime:
-        return
-    if not inputs[0].exists():
-        raise ImportError("native sources not present")
-    if os.environ.get("OSR_TPU_BUILD_NATIVE", "1") == "0":
-        raise ImportError("native auto-build disabled")
-    try:
-        subprocess.run(
-            ["make", "-C", str(src_dir)],
-            capture_output=True,
-            timeout=120,
-            check=True,
-        )
-    except (OSError, subprocess.SubprocessError) as e:
-        raise ImportError(f"native build failed: {e}") from e
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    lib.osr_abi_version.restype = ctypes.c_int64
-    lib.osr_abi_version.argtypes = []
-    got = int(lib.osr_abi_version())
-    if got != _ABI_VERSION:
-        raise ImportError(f"native ABI {got}, bindings expect {_ABI_VERSION}")
+def _signatures():
+    """restype and argtypes of each entry point, by unprefixed name."""
     c_char_p = ctypes.c_char_p
     c_void_p = ctypes.c_void_p
     c_i64 = ctypes.c_int64
     c_int = ctypes.c_int
     c_dbl = ctypes.c_double
+    c_u64 = ctypes.c_uint64
     p_i64 = ctypes.POINTER(ctypes.c_int64)
     p_i32 = ctypes.POINTER(ctypes.c_int32)
     p_f32 = ctypes.POINTER(ctypes.c_float)
     p_i8 = ctypes.POINTER(ctypes.c_int8)
     p_u8 = ctypes.POINTER(ctypes.c_uint8)
-
-    lib.tf_build.restype = c_void_p
-    lib.tf_build.argtypes = [c_char_p, c_i64, p_i64, c_i64]
-    for fn in ("tf_num_terms", "tf_nnz", "tf_term_bytes"):
-        getattr(lib, fn).restype = c_i64
-        getattr(lib, fn).argtypes = [c_void_p]
-    lib.tf_copy.restype = None
-    lib.tf_copy.argtypes = [
-        c_void_p, p_i64, p_i32, p_f32, p_f32, p_i64, c_char_p, p_i64,
-    ]
-    lib.tf_free.restype = None
-    lib.tf_free.argtypes = [c_void_p]
-    lib.tokenize_ascii.restype = c_i64
-    lib.tokenize_ascii.argtypes = [
-        c_char_p, c_i64, c_char_p, p_i64, p_i64, c_i64,
-    ]
-    lib.vocab_build.restype = c_void_p
-    lib.vocab_build.argtypes = [c_char_p, p_i64, c_i64]
-    lib.vocab_free.restype = None
-    lib.vocab_free.argtypes = [c_void_p]
-    lib.encode_queries.restype = c_i64
-    lib.encode_queries.argtypes = [
-        c_void_p, c_char_p, p_i64, c_i64, p_i32, p_f32, p_i64, c_i64,
-    ]
-    lib.tail_candidates.restype = c_i64
-    lib.tail_candidates.argtypes = [
-        p_i64, p_i32, p_f32, p_i32, p_f32, p_i64, c_i64,
-        p_i32, p_i32, p_f32, p_i64, c_i64,
-    ]
-    lib.cand_head_dot.restype = None
-    lib.cand_head_dot.argtypes = [
-        c_void_p, c_i64, p_f32, c_i64, p_i32, p_i32, c_i64,
-        p_i32, p_f32, p_i64, p_f32,
-    ]
-    lib.merge_topk.restype = None
-    lib.merge_topk.argtypes = [
-        p_f32, p_i32, c_i64, c_i64, p_i32, p_f32, p_i64, c_i64, p_f32,
-        p_f32, p_i32,
-    ]
-    lib.transpose_i8.restype = None
-    lib.transpose_i8.argtypes = [p_i8, c_i64, c_i64, p_i8]
-    lib.cand_head_dot_t.restype = None
-    lib.cand_head_dot_t.argtypes = [
-        p_i8, c_i64, p_i32, p_i64, c_i64, p_i32, p_f32, p_i64, p_f32,
-    ]
+    p_u64 = ctypes.POINTER(c_u64)
+    pp_char = ctypes.POINTER(c_char_p)
     pack_args = [
         p_i64, c_i64, c_i64, p_i32, p_f32, p_f32, p_f32, c_i64, c_i64,
         c_int, c_dbl, c_dbl, c_dbl,
     ]
-    lib.pack_hybrid_int8.restype = c_i64
-    lib.pack_hybrid_int8.argtypes = pack_args + [
-        p_i8, p_f32, p_i64, p_i32, p_f32, c_i64,
-    ]
-    lib.pack_hybrid_int4.restype = c_i64
-    lib.pack_hybrid_int4.argtypes = pack_args + [
-        p_u8, p_f32, p_i64, p_i32, p_f32, c_i64,
-    ]
-    lib.get_num_threads.restype = c_int
-    lib.get_num_threads.argtypes = []
-    c_u64 = ctypes.c_uint64
-    pp_char = ctypes.POINTER(c_char_p)
-    p_u64 = ctypes.POINTER(c_u64)
-    lib.henc_create.restype = c_void_p
-    lib.henc_create.argtypes = [c_i64, c_i64, c_int]
-    lib.henc_free.restype = None
-    lib.henc_free.argtypes = [c_void_p]
-    lib.henc_hash.restype = c_u64
-    lib.henc_hash.argtypes = [c_char_p, c_i64]
-    lib.henc_df_size.restype = c_i64
-    lib.henc_df_size.argtypes = [c_void_p]
-    lib.henc_idf.restype = c_dbl
-    lib.henc_idf.argtypes = [c_void_p, c_u64]
-    lib.henc_fit.restype = None
-    lib.henc_fit.argtypes = [c_void_p, pp_char, p_i64, c_i64]
-    lib.henc_export_df.restype = None
-    lib.henc_export_df.argtypes = [c_void_p, p_u64, p_i32]
-    lib.henc_import_df.restype = None
-    lib.henc_import_df.argtypes = [c_void_p, p_u64, p_i32, c_i64, c_i64]
-    lib.henc_encode.restype = None
-    lib.henc_encode.argtypes = [c_void_p, pp_char, p_i64, c_i64, p_f32]
+    return {
+        "set_num_threads": (None, [c_int]),
+        "get_num_threads": (c_int, []),
+        "tf_build": (c_void_p, [c_char_p, c_i64, p_i64, c_i64]),
+        "tf_num_terms": (c_i64, [c_void_p]),
+        "tf_nnz": (c_i64, [c_void_p]),
+        "tf_term_bytes": (c_i64, [c_void_p]),
+        "tf_copy": (None, [
+            c_void_p, p_i64, p_i32, p_f32, p_f32, p_i64, c_char_p, p_i64,
+        ]),
+        "tf_free": (None, [c_void_p]),
+        "tokenize_ascii": (c_i64, [
+            c_char_p, c_i64, c_char_p, p_i64, p_i64, c_i64,
+        ]),
+        "vocab_build": (c_void_p, [c_char_p, p_i64, c_i64]),
+        "vocab_free": (None, [c_void_p]),
+        "encode_queries": (c_i64, [
+            c_void_p, c_char_p, p_i64, c_i64, p_i32, p_f32, p_i64, c_i64,
+        ]),
+        "tail_candidates": (c_i64, [
+            p_i64, p_i32, p_f32, p_i32, p_f32, p_i64, c_i64,
+            p_i32, p_i32, p_f32, p_i64, c_i64,
+        ]),
+        "cand_head_dot": (None, [
+            c_void_p, c_i64, p_f32, c_i64, p_i32, p_i32, c_i64,
+            p_i32, p_f32, p_i64, p_f32,
+        ]),
+        "merge_topk": (None, [
+            p_f32, p_i32, c_i64, c_i64, p_i32, p_f32, p_i64, c_i64, p_f32,
+            p_f32, p_i32,
+        ]),
+        "transpose_i8": (None, [p_i8, c_i64, c_i64, p_i8]),
+        "cand_head_dot_t": (None, [
+            p_i8, c_i64, p_i32, p_i64, c_i64, p_i32, p_f32, p_i64, p_f32,
+        ]),
+        "pack_hybrid_int8": (c_i64, pack_args + [
+            p_i8, p_f32, p_i64, p_i32, p_f32, c_i64,
+        ]),
+        "pack_hybrid_int4": (c_i64, pack_args + [
+            p_u8, p_f32, p_i64, p_i32, p_f32, c_i64,
+        ]),
+        "henc_create": (c_void_p, [c_i64, c_i64, c_int]),
+        "henc_free": (None, [c_void_p]),
+        "henc_hash": (c_u64, [c_char_p, c_i64]),
+        "henc_df_size": (c_i64, [c_void_p]),
+        "henc_idf": (c_dbl, [c_void_p, c_u64]),
+        "henc_fit": (None, [c_void_p, pp_char, p_i64, c_i64]),
+        "henc_export_df": (None, [c_void_p, p_u64, p_i32]),
+        "henc_import_df": (None, [c_void_p, p_u64, p_i32, c_i64, c_i64]),
+        "henc_encode": (None, [c_void_p, pp_char, p_i64, c_i64, p_f32]),
+    }
+
+
+def _bind(cdll: ctypes.CDLL, path: Path) -> types.SimpleNamespace:
+    """The entry points under their unprefixed names, plus ``path``."""
+    abi = cdll[_PREFIX + "abi_version"]
+    abi.restype = ctypes.c_int64
+    abi.argtypes = []
+    got = int(abi())
+    if got != _ABI_VERSION:
+        raise RuntimeError(
+            f"host runtime ABI {got}, bindings expect {_ABI_VERSION}"
+        )
+    lib = types.SimpleNamespace(path=path, cdll=cdll)
+    for name, (restype, argtypes) in _signatures().items():
+        fn = cdll[_PREFIX + name]
+        fn.restype = restype
+        fn.argtypes = argtypes
+        setattr(lib, name, fn)
     return lib
 
 
-def library() -> ctypes.CDLL:
-    """The loaded runtime; raises ImportError when it cannot be built or
+def library() -> types.SimpleNamespace:
+    """The loaded runtime, built first if needed; raises ImportError with
+    the compiler's or the loader's message when it cannot be built or
     loaded (the failure is remembered for the life of the process)."""
     global _lib, _error
     if _lib is not None:
@@ -183,19 +142,14 @@ def library() -> ctypes.CDLL:
             if _error is not None:
                 raise ImportError(_error)
             try:
-                path = _lib_path()
-                _build_if_needed(path)
-                try:
-                    lib = ctypes.CDLL(str(path))
-                except OSError as e:
-                    raise ImportError(f"native library failed to load: {e}")
-                try:
-                    _lib = _bind(lib)
-                except AttributeError as e:
-                    raise ImportError(f"native library is stale: {e}")
-            except ImportError as e:
-                _error = str(e)
-                raise
+                path = _build.build_host()
+                _lib = _bind(ctypes.CDLL(str(path)), path)
+            except (OSError, RuntimeError, AttributeError) as e:
+                _error = (
+                    f"the host runtime ({_build.HOST_SOURCE.name}) cannot be "
+                    f"built or loaded: {e}"
+                )
+                raise ImportError(_error) from e
     return _lib
 
 
@@ -217,6 +171,14 @@ def _i32(a):
 
 def _f32(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def set_num_threads(n: Optional[int]) -> None:
+    """Force the runtime's thread count (0 or None restores auto). Every
+    parallel section partitions its work deterministically and each thread
+    owns a disjoint output range, so results are bit-identical across
+    thread counts."""
+    library().set_num_threads(int(n or 0))
 
 
 def get_num_threads() -> int:
@@ -319,14 +281,10 @@ class NativeVocab:
 
 
 def tail_candidates_native(
-    post_ptr, post_rows, post_weights, q_tids, q_counts, q_ptr, num_rows
+    post_ptr, post_rows, post_weights, q_tids, q_counts, q_ptr
 ):
-    """Flat tail-candidate scoring (see index/postings.py). Refuses
-    ``num_rows >= 2**24``, where the walker's radix sort is undefined."""
-    if num_rows >= WALKER_MAX_ROWS:
-        raise ValueError(
-            f"the native tail walker supports < 2^24 rows (got {num_rows})"
-        )
+    """Flat tail-candidate scoring (see index/postings.py); rows are
+    non-negative int32s, any count of them."""
     lib = library()
     nq = len(q_ptr) - 1
     post_ptr = np.ascontiguousarray(post_ptr, dtype=np.int64)

@@ -1,31 +1,44 @@
-"""Build and bind the hand-written CUDA kernels of ``osr_tpu_torch/csrc``.
+"""Build and bind the hand-written code of ``osr_tpu_torch/csrc``.
 
 Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for
 ``sm_90a`` (Hopper), into its own shared library with a plain C
 interface under ``build/osr_tpu_torch/`` at the repository root, and is
 loaded with ctypes. Pointers and the CUDA stream cross the boundary as
-``c_void_p``. Libraries are named by a hash of their source, the shared
-headers (``csrc/*.cuh``) and the flags, so an edited source or header
-rebuilds. Sources build in parallel: one ``nvcc`` per file, all started
-together. Nothing is built when the module is imported.
+``c_void_p``. ``csrc/host_runtime.cc``, the C++ host runtime that
+``osr_tpu_torch/native.py`` binds, compiles there too, with ``$CXX`` (or
+``g++``) for the host's own CPU; it needs no CUDA toolkit, so the CPU
+path builds it as well. Libraries are named by a hash of their source,
+the shared headers (``csrc/*.cuh``, for the kernels), the compiler and
+the flags, so an edited source, header or flag rebuilds. Sources build in
+parallel: one compiler process per file, all started together. Nothing is
+built when the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "osr_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+HOST_SOURCE = CSRC / "host_runtime.cc"
+# -ffp-contract=off: GCC contracts a*b+c into an FMA by default, which
+# rounds differently from NumPy's separate operations; the runtime's
+# results are bit-identical to its NumPy twins only without it.
+HOST_FLAGS = (
+    "-O3", "-march=native", "-ffp-contract=off", "-std=c++17", "-fPIC",
+    "-shared", "-fvisibility=hidden",
 )
 
 _lock = threading.Lock()
@@ -45,12 +58,75 @@ def _nvcc() -> str:
     )
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def host_target() -> Path:
+    """Where the host runtime's library for this source, compiler and set
+    of flags lives (it may not be built yet)."""
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(" ".join((_cxx(), *HOST_FLAGS)).encode())
+    return BUILD_DIR / f"lib{HOST_SOURCE.stem}-{h.hexdigest()[:12]}.so"
+
+
+def _host_job() -> Tuple[Path, Path, List[str]]:
+    return HOST_SOURCE, host_target(), [_cxx(), *HOST_FLAGS]
+
+
+def _compile(jobs: Sequence[Tuple[Path, Path, List[str]]]) -> None:
+    """Run every (source, library, compiler and flags) job at once; each
+    compiler writes a temporary file that replaces the library when it
+    succeeds. Raises RuntimeError with each failed compiler's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, failed = [], []
+    for src, out, compiler in jobs:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [*compiler, "-o", str(tmp), str(src)]
+        try:
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+            )
+        except OSError as e:
+            failed.append(f"{src.name}: cannot run {cmd[0]}: {e}")
+            continue
+        procs.append((src, out, tmp, cmd[0], proc))
+    for src, out, tmp, compiler, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(
+                f"{src.name} ({compiler}, exit {proc.returncode}):\n"
+                f"{log.decode(errors='replace')}"
+            )
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("compile failed for " + "\n".join(failed))
+
+
+def build_host() -> Path:
+    """The host runtime's library, compiled first if it is not built yet
+    (one compiler for all processes that ask at once: the others wait on
+    a file lock). Raises RuntimeError with the compiler's output when the
+    compile fails."""
+    out = host_target()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{HOST_SOURCE.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile([_host_job()])
+    return out
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -86,34 +162,20 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile every ``csrc/*.cu`` that has no up-to-date library (one
-    ``nvcc`` process per source, run concurrently) and load them all."""
+    """Compile every ``csrc/*.cu`` that has no up-to-date library, and the
+    host runtime if it has none (one compiler process per source, run
+    concurrently), and load the kernel libraries."""
     with _lock:
         sources = sorted(CSRC.glob("*.cu"))
-        todo = [s for s in sources if not _target(s).exists()]
-        if todo:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            nvcc = _nvcc()
-            procs = []
-            for src in todo:
-                out = _target(src)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-                procs.append(
-                    (src, out, tmp, subprocess.Popen(
-                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
-                    ))
-                )
-            failed = []
-            for src, out, tmp, proc in procs:
-                log, _ = proc.communicate()
-                if proc.returncode != 0:
-                    failed.append(f"{src.name}:\n{log.decode(errors='replace')}")
-                    tmp.unlink(missing_ok=True)
-                else:
-                    os.replace(tmp, out)
-            if failed:
-                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        jobs = [
+            (src, _target(src), [_nvcc(), *NVCC_FLAGS])
+            for src in sources
+            if not _target(src).exists()
+        ]
+        if not host_target().exists():
+            jobs.append(_host_job())
+        if jobs:
+            _compile(jobs)
         for src in sources:
             if src.stem not in _libs:
                 _libs[src.stem] = _bind(

@@ -100,6 +100,7 @@ from osr_tpu_torch.retrieval.engine import (
     _head_backend,
     _resolve_device,
     _upload,
+    host_runtime,
 )
 from osr_tpu_torch.retrieval.pipeline_util import run_pipelined
 from osr_tpu_torch.retrieval.results import (
@@ -344,6 +345,7 @@ class ShardedSparseSearchEngine:
     ):
         self.index = index
         self.device = _resolve_device(device)
+        host_runtime(self.device)
         self.comm = MeshComm(mesh, self.device)
         self.n_q = self.comm.n_q
         self.batch_sizes = tuple(

@@ -215,6 +215,23 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def host_runtime(device: torch.device) -> bool:
+    """Whether the sparse engines' host stages take the C++ runtime
+    (``native.py``). On a CUDA device they always do: a runtime that cannot
+    be built or loaded raises, with the compiler's output, and no NumPy
+    body stands in for it there. On the CPU they do when it loads, and take
+    the NumPy bodies otherwise, as ``osr_tpu`` does."""
+    if device.type != "cuda":
+        return native.available()
+    try:
+        native.library()
+    except ImportError as e:
+        raise RuntimeError(
+            f"the sparse engines on {device} need the host runtime: {e}"
+        ) from e
+    return True
+
+
 def _head_backend(head_backend: str, head_dtype: str, device) -> str:
     """The sparse engines' head backend: 'auto' takes the CUDA kernels for
     an int8/int4 head on a CUDA device and the plain version otherwise;
@@ -330,8 +347,9 @@ class SparseSearchEngine:
                 f"narrow_m={self.narrow_m}: the block top-m kernel takes "
                 f"m <= {head_ops.BLOCKTOPM_MAX_M}"
             )
+        with_runtime = host_runtime(self.device)
         if merge_backend == "auto":
-            merge_backend = "host" if native.available() else "device"
+            merge_backend = "host" if with_runtime else "device"
         if merge_backend not in ("host", "device"):
             raise ValueError(f"Unknown merge_backend: {merge_backend}")
         self.merge_backend = merge_backend

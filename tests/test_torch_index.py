@@ -190,39 +190,32 @@ def test_postings_match_osr_tpu(corpus, use_native):
         assert a.tobytes() == b.tobytes()
 
 
-def test_walker_guard_refuses_2_pow_24_rows():
-    z = np.zeros(2, np.int64)
-    with pytest.raises(ValueError, match="2\\^24"):
-        tnative.tail_candidates_native(
-            z, np.zeros(0, np.int32), np.zeros(0, np.float32),
-            np.zeros(1, np.int32), np.ones(1, np.float32),
-            np.array([0, 1], np.int64), 1 << 24,
-        )
+def _tail_case(top):
+    """Three tail terms whose ascending postings reach row ``top``, with
+    rows that differ in each 12-bit digit and rows shared across terms,
+    over a batch of 4 (query 1 empty, query 3 padding). Weights are
+    multiples of 1/4, so every sum is exact in float32 and the runtime's
+    float32 sums and the NumPy body's float64 ones give the same bits."""
+    terms = [
+        sorted({7, 4096, top // 3, top - 2, top}),
+        sorted({0, 4095, top // 3, top - 2}),
+        sorted({3, 1 << 12, (top >> 12) << 12, top // 3, top - 1, top}),
+    ]
+    post_ptr = np.cumsum([0] + [len(t) for t in terms]).astype(np.int64)
+    post_rows = np.array([r for t in terms for r in t], np.int32)
+    post_weights = np.arange(1, len(post_rows) + 1, dtype=np.float32) / 4
+    tail_ids = np.array([0, 1, 2, 1, 2, 0], np.int32)
+    tail_counts = np.array([1.0, 2.0, 1.0, 3.0, 1.0, 2.0], np.float32)
+    tail_ptr = np.array([0, 3, 3, 6], np.int64)
+    return (post_ptr, post_rows, post_weights, tail_ids, tail_counts,
+            tail_ptr)
 
 
-def test_tail_walk_at_2_pow_24_rows_takes_numpy_body():
-    """An index of 2^24 rows or more (row chunks lift osr_tpu's cap): the
-    tail walk takes the NumPy body instead of the walker's refusal, and
-    sums duplicate (query, row) contributions as a plain dict does."""
-    top = 1 << 24
-    post_ptr = np.array([0, 3, 5, 8], np.int64)
-    post_rows = np.array(
-        [7, top - 2, top - 1, 0, top - 2, 3, top - 1, top - 3], np.int32
-    )
-    post_weights = np.arange(1, 9, dtype=np.float32) / 4
-    tail_ids = np.array([0, 1, 2, 1], np.int32)
-    tail_counts = np.array([1.0, 2.0, 1.0, 3.0], np.float32)
-    tail_ptr = np.array([0, 2, 2, 4], np.int64)
-    args = (post_ptr, post_rows, post_weights, tail_ids, tail_counts,
-            tail_ptr, 4)
-    got = tpost.tail_candidates_flat(*args, num_rows=top, use_native=True)
-    want = tpost.tail_candidates_flat(*args, num_rows=top, use_native=False)
-    for name in ("rows", "cols", "tail", "ptr"):
-        assert getattr(got, name).tobytes() == getattr(want, name).tobytes()
-    assert got.total == want.total
-
+def _dict_sums(post_ptr, post_rows, post_weights, tail_ids, tail_counts,
+               tail_ptr):
+    """(query, row) -> summed contribution, by plain dict."""
     sums = {}
-    for q in range(3):
+    for q in range(len(tail_ptr) - 1):
         for i in range(tail_ptr[q], tail_ptr[q + 1]):
             t = tail_ids[i]
             for p in range(post_ptr[t], post_ptr[t + 1]):
@@ -230,12 +223,65 @@ def test_tail_walk_at_2_pow_24_rows_takes_numpy_body():
                 sums[key] = sums.get(key, 0.0) + float(
                     post_weights[p] * tail_counts[i]
                 )
+    return sums
+
+
+def _assert_dict_sums(cand, sums):
     keys = sorted(sums)
-    assert got.total == len(keys)
-    assert got.cols.tolist() == [q for q, _ in keys]
-    assert got.rows.tolist() == [r for _, r in keys]
-    np.testing.assert_allclose(got.tail, [sums[k] for k in keys], rtol=1e-6)
-    assert got.ptr.tolist() == [0, 4, 4, 9, 9]
+    assert cand.total == len(keys)
+    assert cand.cols[: cand.total].tolist() == [q for q, _ in keys]
+    assert cand.rows[: cand.total].tolist() == [r for _, r in keys]
+    assert cand.tail[: cand.total].tolist() == [sums[k] for k in keys]
+
+
+@pytest.mark.parametrize(
+    "top", [(1 << 24) - 1, 1 << 24, 1 << 28, (1 << 31) - 1]
+)
+def test_native_walk_equals_numpy_body_past_2_pow_24(top):
+    """The runtime's walker sorts rows on at most three 12-bit digits, so
+    rows up to the int32 maximum walk as the NumPy body and a plain dict
+    walk them."""
+    case = _tail_case(top)
+    rows, cols, tail, qptr, total = tnative.tail_candidates_native(*case)
+    want = tpost.tail_candidates_flat(
+        *case, 3, num_rows=top + 1, use_native=False
+    )
+    assert total == want.total
+    assert rows[:total].tobytes() == want.rows.tobytes()
+    assert cols[:total].tobytes() == want.cols.tobytes()
+    assert tail[:total].tobytes() == want.tail.tobytes()
+    assert qptr.tobytes() == want.ptr.tobytes()
+    _assert_dict_sums(want, _dict_sums(*case))
+
+
+def test_tail_walk_at_2_pow_24_rows_takes_numpy_body(monkeypatch):
+    """An index of 2^24 rows or more (row chunks lift osr_tpu's cap):
+    ``tail_candidates_flat(use_native=True)`` walks it in the runtime,
+    once, and its candidates equal the NumPy body's and the plain-dict
+    sums."""
+    top = 1 << 24
+    case = _tail_case(top)
+    calls = []
+    walk = tnative.tail_candidates_native
+
+    def counted(*args):
+        calls.append(args)
+        return walk(*args)
+
+    monkeypatch.setattr(tnative, "tail_candidates_native", counted)
+    got = tpost.tail_candidates_flat(
+        *case, 4, num_rows=top + 1, use_native=True
+    )
+    assert len(calls) == 1
+    want = tpost.tail_candidates_flat(
+        *case, 4, num_rows=top + 1, use_native=False
+    )
+    assert len(calls) == 1
+    for name in ("rows", "cols", "tail", "ptr"):
+        assert getattr(got, name).tobytes() == getattr(want, name).tobytes()
+    assert got.total == want.total
+    _assert_dict_sums(got, _dict_sums(*case))
+    assert got.ptr.tolist() == [0, 9, 9, 18, 18]
 
 
 @pytest.mark.parametrize("dtype", ["int8", "int4", "bf16"])
