@@ -138,13 +138,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and K5 and return the flat engine's results (sparse dict for dict,
    dense bit for bit); every process group has a 60 s timeout, and the
    parent waits at most 300 s, then kills the ranks and fails with a
-   rank's traceback.
+   rank's traceback;
+13. the measurement entry points (osr_tpu_torch/bench/), each mode in a
+   process of its own through ``python -m osr_tpu_torch.bench``: the
+   headline (bench.py's workload), whose last line must hold every key
+   the tests fix, a positive value that is the median of 9 passes, a
+   device and a host probe per pass and this card's line, with K2
+   launched in its passes and K7 + K5 in its dense leg; hybrid --fusion
+   rrf at full size (K2, K7, K5); scaling --head-dtype int4 (K3) at
+   200,000 docs; dense-scale at 1M x 768 (K7 + K5, K7 + K6). A mode that
+   exits non-zero, or outlives 300 s (it is killed), fails the run.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
 (with ``surface_launches`` and ``pipeline_launches``, phase 6's and phase
-7's launches, on K2's, K7's and K5's, and ``benchmarks_launches`` and
-``sharded_launches``, phases 8's and 12's (both ranks of (b) included),
-on every kernel's),
+7's launches, on K2's, K7's and K5's, and ``benchmarks_launches``,
+``sharded_launches`` and ``bench_launches``, phases 8's, 12's (both ranks
+of (b) included) and 13's (the modes' measured passes), on every
+kernel's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 
@@ -166,12 +176,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
-NUM_DOCS = 57_638
-NUM_QUERIES = 6_648
-VOCAB = 100_000
-TOP_K = 50
+# bench.py's workload (BATCH = 3,328: two batches per pass), the H100's
+# peaks, the head kernels' byte and operation count and the launch counts:
+# one definition, shared with the port's measurement entry points.
+from osr_tpu_torch.bench.common import (
+    BATCH,
+    NUM_QUERIES,
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES,
+    PEAK_F32_OPS,
+    PEAK_INT8_OPS,
+    TOP_K,
+    all_launches,
+    card_line,
+    check_host_runtime,
+    head_work,
+    make_corpus,
+    make_queries,
+    reset_all_launches,
+)
+
 DEEP_K = 1_000  # the depth BEIR evaluation retrieves
-BATCH = ((NUM_QUERIES // 2 + 7) // 8) * 8  # 3,328: two batches per pass
 MERGE_QUERIES = 256
 DENSE_DOCS = 1_000_000
 DENSE_DIM = 768
@@ -179,10 +204,6 @@ DENSE_BATCH = 1_024
 DENSE_QUERIES = 4_096
 DENSE_CHECK = 256  # queries held against the backend='torch' engine
 BENCH_DENSE_BATCH = 4_096  # bench.py's dense batch
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
-PEAK_F32_OPS = 67e12  # H100 SXM float32 rate outside the tensor cores
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 HEAD_KERNELS = {
     # launch-counter name: the Pallas kernel it replaces
     "head_scores_i8": "osr_tpu/ops/pallas/head.py:42",
@@ -244,15 +265,6 @@ def log(msg):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def kernel_resources():
@@ -400,19 +412,16 @@ def host_line(native):
             f"cores usable); runtime threads {native.get_num_threads()}")
 
 
-def check_host_runtime():
+def load_host_runtime():
     """Load the port's host runtime; fail unless it is the library built
     from csrc/host_runtime.cc under build/osr_tpu_torch/."""
     from osr_tpu_torch import native
     from osr_tpu_torch.ops import _build
 
     try:
-        lib = native.library()
-    except ImportError as e:
+        lib = check_host_runtime()
+    except (ImportError, RuntimeError) as e:
         fail(str(e))
-    if lib.path != _build.host_target() or lib.path.parent != _build.BUILD_DIR:
-        fail(f"the host runtime was loaded from {lib.path}, not from "
-             f"{_build.host_target()}")
     log(f"host runtime: {lib.path} ({' '.join(_build.HOST_FLAGS)}); "
         f"{host_line(native)}")
 
@@ -618,12 +627,10 @@ def kernel_numbers(name, head, scales, qhead, valid):
     )
     del hb
     b, r, width = q.shape[0], head.shape[0], q.shape[1]
-    flops = 2.0 * b * r * width
-    nbytes = (
-        head.numel() * head.element_size() + q.numel() * 2 + r + 4 * b * r
+    flops, nbytes = head_work(
+        b, r, width, head.numel() * head.element_size(),
+        blockmax=name != "head_scores_i8",
     )
-    if name != "head_scores_i8":
-        nbytes += 4 * b * (-(-r // 128))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     loads = ""
     if SOURCE_OF[name].endswith("head_wgmma.cu"):
@@ -1009,20 +1016,6 @@ def merge_check(engine, plain_engine, queries):
     return n
 
 
-def device_step(engine, ids, w, top_k):
-    """The engine's own device step for one batch: (top, rows, flag or
-    None), chunked or not, extraction where the engine takes it."""
-    d = engine._dev
-    if d.chunks is not None:
-        return engine._dispatch_chunked(
-            ids, w, top_k, engine._use_extract_chunked(top_k)
-        )
-    top, rows, unsafe, _ = engine._sweep(
-        ids, w, d.head, d.valid, top_k, engine._use_extract(top_k)
-    )
-    return top, rows, unsafe
-
-
 def batch_stages(engine, texts, top_k):
     """Wall time (ms) of each stage of one batch, run one after another
     (inside search() the candidate head dots overlap the device step, or
@@ -1043,9 +1036,8 @@ def batch_stages(engine, texts, top_k):
     lap("encode")
     cand = engine._tail_candidates(enc, enc.head_ids.shape[0])
     lap("tail_walk")
-    top, rows, _ = device_step(
-        engine, engine._upload(enc.head_ids),
-        engine._upload(enc.head_weights), top_k,
+    top, rows, _ = engine.device_step(
+        engine._upload(enc.head_ids), engine._upload(enc.head_weights), top_k
     )
     top, rows = top.cpu().numpy(), rows.cpu().numpy()
     lap("device_step_and_copy")
@@ -1209,7 +1201,7 @@ def million_path(dev):
     ids = torch.from_numpy(enc.head_ids).to(dev)
     w = torch.from_numpy(enc.head_weights).to(dev)
     step = {
-        key: median_ms(lambda e=e: device_step(e, ids, w, TOP_K), reps=5)
+        key: median_ms(lambda e=e: e.device_step(ids, w, TOP_K), reps=5)
         for key, e in eng.items()
     }
     qps = {}
@@ -2067,19 +2059,6 @@ def benchmark_suites(scratch):
 # ----------------------------------------------------------------------
 
 
-def reset_all_launches():
-    from osr_tpu_torch.ops import head, matmul, quantize_kernels
-
-    for mod in (head, matmul, quantize_kernels):
-        mod.reset_launches()
-
-
-def all_launches():
-    from osr_tpu_torch.ops import head, matmul, quantize_kernels
-
-    return {**head.LAUNCHES, **matmul.LAUNCHES, **quantize_kernels.LAUNCHES}
-
-
 def exact(name, got, want):
     """Max |kernel - plain| over every output; fails unless it is 0 and
     the outputs are bit-equal (NaN-free)."""
@@ -2932,6 +2911,132 @@ def sharded_phase(indexes, queries, emb, scratch):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 13: the measurement entry points (osr_tpu_torch/bench/)
+# ----------------------------------------------------------------------
+
+# dense-scale runs at its 1M default. scaling runs at 200,000 docs, cut
+# from 1M because its 1M index takes about 2 minutes to build on the host
+# (phase 10 builds one already), which would take the whole script past
+# 10 minutes; it takes the int4 head (K3), which no other mode reaches.
+BENCH_SCALE_DOCS = 200_000
+BENCH_MODES = (
+    # (the mode's arguments, the kernels each of its rows must launch)
+    ((), ("head_blockmax_i8",)),
+    (("hybrid", "--fusion", "rrf"),
+     ("head_blockmax_i8", "quantize_symmetric", "int8_similarity")),
+    (("scaling", "--docs", str(BENCH_SCALE_DOCS), "--head-dtype", "int4"),
+     ("head_blockmax_i4",)),
+    (("dense-scale",), None),
+)
+BENCH_DENSE_KERNELS = {
+    "symmetric": ("quantize_symmetric", "int8_similarity"),
+    "int4": ("quantize_symmetric", "int4_similarity"),
+}
+BENCH_TIMEOUT_S = 300  # one mode's process; it is killed after
+
+
+def bench_mode(args):
+    """``python -m osr_tpu_torch.bench *args`` in its own process, from this
+    checkout; returns the JSON rows it printed, failing on a non-zero exit
+    or a process that outlives BENCH_TIMEOUT_S (it is killed)."""
+    label = " ".join(args) or "headline"
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, "-m", "osr_tpu_torch.bench", *args],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=BENCH_TIMEOUT_S,
+        )
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13 {label}: no answer in {BENCH_TIMEOUT_S} s (killed)")
+    if res.returncode != 0:
+        fail(f"phase 13 {label}: exit {res.returncode}:\n"
+             f"{res.stderr[-4000:]}")
+    rows = [json.loads(ln) for ln in res.stdout.splitlines()
+            if ln.startswith("{")]
+    if not rows:
+        fail(f"phase 13 {label}: printed no row")
+    log(f"phase 13 {label}: {time.perf_counter() - t0:.1f} s")
+    for row in rows:
+        log(f"phase 13 {label} row: {json.dumps(row)}")
+    return rows
+
+
+def check_launched(label, counts, kernels, total):
+    for name in kernels:
+        if not counts.get(name):
+            fail(f"phase 13 {label}: launched no {name} ({counts})")
+    add_counts(total, counts)
+
+
+def check_headline(line, card, total):
+    """The headline's last line: every key the tests fix, the median of 9
+    passes, a probe pair per pass, the card, K2 in the passes and K7 + K5
+    in the dense leg."""
+    from osr_tpu_torch.bench import headline
+
+    missing = set(headline.KEYS) - set(line)
+    if missing:
+        fail(f"phase 13 headline: keys missing {sorted(missing)}")
+    passes = line["qps_passes"]
+    if (line["metric"] != headline.METRIC or not line["value"] > 0
+            or len(passes) != headline.PASSES
+            or line["value"] != round(float(np.median(passes)), 1)):
+        fail(f"phase 13 headline: value {line['value']} is not the median of "
+             f"{headline.PASSES} passes {passes}")
+    if not (len(line["contention_probe_ms"]) == len(line["host_probe_ms"])
+            == headline.PASSES):
+        fail("phase 13 headline: not one probe pair per pass")
+    if line["device"] != card:
+        fail(f"phase 13 headline: device {line['device']!r}, card {card!r}")
+    if not line["topk_mode_approx_is_exact"]:
+        fail("phase 13 headline: the approx leg's results differ from exact")
+    if line["nonempty_results"] < 0.9 * NUM_QUERIES or not (
+        line["host_threads"] > 0 and line["device_step_ms"] > 0
+        and line["dense_int8_qps"] > 0
+    ):
+        fail("phase 13 headline: empty results or missing numbers")
+    check_launched("headline passes", line["kernel_launches"],
+                   ("head_blockmax_i8",), total)
+    check_launched("headline dense leg", line["dense_kernel_launches"],
+                   BENCH_DENSE_KERNELS["symmetric"], total)
+
+
+def bench_phase(card):
+    """Phase 13: each mode of ``python -m osr_tpu_torch.bench`` on the card;
+    returns each kernel's launches, summed over the modes' measured
+    passes."""
+    t0 = time.perf_counter()
+    total = {}
+    for args, kernels in BENCH_MODES:
+        rows = bench_mode(args)
+        if not args:
+            check_headline(rows[-1], card, total)
+            continue
+        mode = args[0]
+        if mode == "dense-scale":
+            if [r["quantization"] for r in rows] != ["symmetric", "int4"]:
+                fail(f"phase 13 dense-scale: rows {rows}")
+            for r in rows:
+                if not r["qps"] > 0:
+                    fail(f"phase 13 dense-scale {r['quantization']}: no QPS")
+                check_launched(f"dense-scale {r['quantization']}",
+                               r["kernel_launches"],
+                               BENCH_DENSE_KERNELS[r["quantization"]], total)
+            continue
+        row = rows[-1]
+        qps = row["qps"] if mode == "hybrid" else row["qps_exact"]
+        queries = row["num_queries"]
+        done = row["nonempty_results" if mode == "hybrid" else "nonempty"]
+        if not qps > 0 or done < 0.9 * queries:
+            fail(f"phase 13 {mode}: QPS {qps}, {done}/{queries} non-empty")
+        check_launched(mode, row["kernel_launches"], kernels, total)
+    log(f"phase 13 (measurement entry points) took "
+        f"{time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
 def host_stages():
     """``--host-stages``: only the host stages of the sparse path, for
     comparing the runtimes of two checkouts in one call (``--tree``
@@ -2949,12 +3054,7 @@ def host_stages():
     lib = native.library()
     log(f"port {Path(osr_tpu_torch.__file__).parent}; host runtime "
         f"{getattr(lib, 'path', None) or lib._name}; {host_line(native)}")
-    corpus = SyntheticDataGenerator(seed=42).zipf_corpus(
-        NUM_DOCS, VOCAB, avg_len=130, word_prefix="t", min_len=5
-    )
-    queries = SyntheticDataGenerator(seed=6).queries(
-        NUM_QUERIES, VOCAB, avg_terms=11, word_prefix="t", min_terms=2
-    )
+    corpus, queries = make_corpus(), make_queries()
     index = SparseIndexBuilder(head_dtype="int8").build(corpus)
     del corpus
     texts = list(queries.values())[:BATCH]
@@ -3002,7 +3102,12 @@ def main():
     args = parser.parse_args()
     if args.host_stages:
         if args.tree is not None:
+            # Forget this checkout's port (its shared definitions are
+            # bound above), so the stages import the other checkout's.
             sys.path.insert(0, str(args.tree.resolve()))
+            for name in [m for m in sys.modules
+                         if m.split(".")[0] == "osr_tpu_torch"]:
+                del sys.modules[name]
         log(f"card: {card_line()}")
         host_stages()
         return 0
@@ -3012,7 +3117,6 @@ def main():
     from osr_tpu_torch.ops import _build
     from osr_tpu_torch.ops.bm25 import fused_search, fused_search_extract
     from osr_tpu_torch.retrieval.engine import SparseSearchEngine
-    from osr_tpu_torch.testing import SyntheticDataGenerator
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3023,7 +3127,7 @@ def main():
     _build.build_all()
     log(f"kernel and host runtime build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc for sm_90a and {_build._cxx()}, in parallel)")
-    check_host_runtime()
+    load_host_runtime()
     walker_past_2_pow_24()
     regs, smem = kernel_resources()
     log(f"registers per thread (ptxas): {regs}")
@@ -3039,12 +3143,7 @@ def main():
     dense_small_checks(dev)
 
     t0 = time.perf_counter()
-    corpus = SyntheticDataGenerator(seed=42).zipf_corpus(
-        NUM_DOCS, VOCAB, avg_len=130, word_prefix="t", min_len=5
-    )
-    queries = SyntheticDataGenerator(seed=6).queries(
-        NUM_QUERIES, VOCAB, avg_terms=11, word_prefix="t", min_terms=2
-    )
+    corpus, queries = make_corpus(), make_queries()
     index8 = SparseIndexBuilder(head_dtype="int8").build(corpus)
     index4 = SparseIndexBuilder(head_dtype="int4").build(corpus)
     log(
@@ -3217,12 +3316,17 @@ def main():
             {"int8": index8, "int4": index4}, queries, bemb, Path(scratch)
         )
     del bemb, index8, index4
+    torch.cuda.empty_cache()
+    log(f"sharded engines done at {time.perf_counter() - t_start:.1f} s")
+
+    bench = bench_phase(card)
     for r in rows:
         if r["name"] in surface:
             r["surface_launches"] = surface[r["name"]]
             r["pipeline_launches"] = pipeline[r["name"]]
         r["benchmarks_launches"] = benchmarks[r["name"]]
         r["sharded_launches"] = sharded.get(r["name"], 0)
+        r["bench_launches"] = bench.get(r["name"], 0)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card, flush=True)

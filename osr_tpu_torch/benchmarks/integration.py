@@ -21,7 +21,7 @@ from osr_tpu_torch.benchmarks.framework import (
     save_json,
 )
 from osr_tpu_torch.benchmarks.suites import ALL_SUITES
-from osr_tpu_torch.retrieval.engine import _resolve_device
+from osr_tpu_torch.retrieval.engine import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -37,7 +37,7 @@ class IntegrationRunner:
         self.out_dir = Path(out_dir)
         self.suite_names = list(suites or ALL_SUITES.keys())
         self.suite_kwargs = suite_kwargs or {}
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
     def run(self) -> Dict[str, Any]:
         outputs: List[Dict[str, Any]] = []

@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional, Sequence, Union
 
 from osr_tpu_torch.benchmarks.framework import format_results_table, save_json
 from osr_tpu_torch.metrics.ir import evaluate_retrieval
-from osr_tpu_torch.retrieval.engine import _resolve_device
+from osr_tpu_torch.retrieval.engine import resolve_device
 from osr_tpu_torch.retrieval.registry import RetrieverRegistry
 from osr_tpu_torch.storage.loaders import (
     extract_query_text,
@@ -108,7 +108,7 @@ def run_quality_benchmark(
     method_params: Optional[Dict[str, Dict[str, Any]]] = None,
     device=None,
 ) -> Dict[str, Any]:
-    device = str(_resolve_device(device))
+    device = str(resolve_device(device))
     dataset_dir = Path(dataset_dir)
     out_dir = Path(out_dir)
     corpus = load_corpus(dataset_dir)

@@ -49,7 +49,7 @@ from osr_tpu_torch.benchmarks.framework import (
     grade_performance,
 )
 from osr_tpu_torch.index.builder import SparseIndexBuilder
-from osr_tpu_torch.retrieval.engine import SparseSearchEngine, _resolve_device
+from osr_tpu_torch.retrieval.engine import SparseSearchEngine, resolve_device
 from osr_tpu_torch.testing import (
     CorrectnessValidator,
     SyntheticDataGenerator,
@@ -105,7 +105,7 @@ class BM25Suite(BenchmarkSuite):
     ):
         self.num_docs = num_docs
         self.vocab_size = vocab_size
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
     def setup(self) -> None:
         gen = SyntheticDataGenerator()
@@ -293,7 +293,7 @@ class TopKSuite(BenchmarkSuite):
         self, n: int = 50_000, batch: int = 16, k: int = 100, device=None
     ):
         self.n, self.batch, self.k = n, batch, k
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
     def setup(self) -> None:
         rng = np.random.RandomState(42)
@@ -349,7 +349,7 @@ class QuantizationSuite(BenchmarkSuite):
 
     def __init__(self, num_docs: int = 2000, dim: int = 256, device=None):
         self.num_docs, self.dim = num_docs, dim
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
 
     def setup(self) -> None:
         gen = SyntheticDataGenerator()

@@ -72,7 +72,7 @@ class HFEncoder:
         dtype: str = "float32",
         device=None,
     ):
-        from osr_tpu_torch.retrieval.engine import _resolve_device
+        from osr_tpu_torch.retrieval.engine import resolve_device
 
         if backend not in ("auto", "torch"):
             raise ValueError(
@@ -87,7 +87,7 @@ class HFEncoder:
         self.pad_to_max = pad_to_max
         self.backend = "torch"
         self.dtype = _DTYPES[dtype]
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         if tokenizer is None or model is None:
             try:
                 import transformers

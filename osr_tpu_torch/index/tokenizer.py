@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import re
 from collections import Counter
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 from osr_tpu_torch import native
 
@@ -39,6 +39,20 @@ class Tokenizer:
 
     def __init__(self, vocabulary: Dict[str, int]):
         self.vocabulary = vocabulary
+
+    @classmethod
+    def build(cls, texts: Iterable[str]) -> Tuple["Tokenizer", List[List[str]]]:
+        """A tokenizer over the sorted set of every token of ``texts`` (the
+        reference's vocabulary, as ``osr_tpu``'s ``Tokenizer.build``), and
+        each text's token list, so callers do not tokenize twice."""
+        token_lists: List[List[str]] = []
+        vocab_set: set = set()
+        for text in texts:
+            toks = tokenize(text)
+            token_lists.append(toks)
+            vocab_set.update(toks)
+        vocab = {term: idx for idx, term in enumerate(sorted(vocab_set))}
+        return cls(vocab), token_lists
 
     def __len__(self) -> int:
         return len(self.vocabulary)

@@ -98,9 +98,9 @@ from osr_tpu_torch.retrieval.engine import (
     _PendingResult,
     _dense_backend,
     _head_backend,
-    _resolve_device,
     _upload,
     host_runtime,
+    resolve_device,
 )
 from osr_tpu_torch.retrieval.pipeline_util import run_pipelined
 from osr_tpu_torch.retrieval.results import (
@@ -344,7 +344,7 @@ class ShardedSparseSearchEngine:
         device=None,
     ):
         self.index = index
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         host_runtime(self.device)
         self.comm = MeshComm(mesh, self.device)
         self.n_q = self.comm.n_q
@@ -673,7 +673,7 @@ class ShardedDenseSearchEngine:
                 f"{embeddings.shape[0]} embeddings for {len(self.doc_ids)} "
                 "doc ids"
             )
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.comm = MeshComm(mesh, self.device)
         self.quantization = quantization
         self.backend = _dense_backend(backend, quantization, self.device)

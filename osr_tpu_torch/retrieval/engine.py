@@ -206,7 +206,7 @@ class _DeviceIndex:
         self.empty_i32 = torch.zeros(0, dtype=torch.int32, device=device)
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """The engines' device: ``cuda`` unless the caller names another; a
     CUDA device that is not there raises."""
     dev = torch.device(device if device is not None else "cuda")
@@ -324,7 +324,7 @@ class SparseSearchEngine:
         cand_filter_per_query: int = 2048,  # defer+filter gate; 0 = off
     ):
         self.index = index
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.batch_sizes = tuple(sorted(batch_sizes))
         if topk_mode not in ("exact", "approx"):
             raise ValueError(f"Unknown topk_mode: {topk_mode}")
@@ -518,6 +518,36 @@ class SparseSearchEngine:
         top, rows, _, _ = self._sweep(ids, w, d.head, d.valid, top_k, False)
         return top, rows
 
+    def device_step(self, ids, w, top_k: int):
+        """The device step of one batch on its uploaded head ids and
+        weights (scatter, head kernel, selection; chunked, and extraction,
+        where the engine takes them): (top, rows, tie flag or None) on the
+        device, not waited for. :meth:`search_encoded_device` runs it
+        wherever the merge is on the host."""
+        d = self._dev
+        if d.chunks is not None:
+            return self._dispatch_chunked(
+                ids, w, top_k, self._use_extract_chunked(top_k)
+            )
+        top, rows, unsafe, _ = self._sweep(
+            ids, w, d.head, d.valid, top_k, self._use_extract(top_k)
+        )
+        return top, rows, unsafe
+
+    @property
+    def swept_head(self) -> Tuple[int, int, int]:
+        """(rows, columns, bytes) of the head as one device step sweeps it:
+        rows padded to the row tile, over every chunk; columns the query
+        width the head kernel multiplies (padded to its alignment)."""
+        d = self._dev
+        parts = d.chunks if d.chunks is not None else [(d.head, d.valid)]
+        head = parts[0][0]
+        cols = head.shape[1] * (2 if self.index.layout.head_dtype == "int4"
+                                else 1)
+        return d.num_rows, cols, sum(
+            h.numel() * h.element_size() for h, _ in parts
+        )
+
     def search_encoded_device(self, enc: EncodedBatch, top_k: int):
         """Launch the device step and start its result copy, then run the
         host stages that do not need it (tail candidates were walked
@@ -540,14 +570,7 @@ class SparseSearchEngine:
             return cand, result, None, np.zeros(
                 enc.head_ids.shape[0], dtype=np.float32
             ), None
-        if d.chunks is not None:
-            top, rows, unsafe = self._dispatch_chunked(
-                ids, w, top_k, self._use_extract_chunked(top_k)
-            )
-        else:
-            top, rows, unsafe, _ = self._sweep(
-                ids, w, d.head, d.valid, top_k, self._use_extract(top_k)
-            )
+        top, rows, unsafe = self.device_step(ids, w, top_k)
         if unsafe is None:
             result, redo = _PendingResult((top, rows), self.device), None
         else:
@@ -861,7 +884,7 @@ class DenseSearchEngine:
             raise ValueError(f"Unknown quantization: {quantization}")
         self.doc_ids = list(doc_ids)
         self.quantization = quantization
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.backend = _dense_backend(backend, quantization, self.device)
         if embeddings.shape[0] != len(self.doc_ids):
             raise ValueError(
@@ -958,7 +981,7 @@ class DenseSearchEngine:
         self = cls.__new__(cls)
         self.doc_ids = list(doc_ids)
         self.quantization = quantization
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.backend = _dense_backend(backend, quantization, self.device)
         self.dim = int(dim)
         self._doc_names = None

@@ -61,9 +61,9 @@ def validate_backend(device=None) -> Dict[str, Any]:
     validate_numpy_simd, reference tests/hardware_detection.py:32-79): run
     a small matmul/reduction on ``device`` (``cuda`` unless the caller
     names another) and compare against NumPy."""
-    from osr_tpu_torch.retrieval.engine import _resolve_device
+    from osr_tpu_torch.retrieval.engine import resolve_device
 
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     rng = np.random.RandomState(0)
     a = rng.randn(64, 64).astype(np.float32)
     b = rng.randn(64, 64).astype(np.float32)

@@ -246,3 +246,35 @@ def test_parallel_imports_without_jax_osr_tpu_or_a_process_group():
     assert "LAZY ['osr_tpu_torch', 'osr_tpu_torch.parallel']" in lines, lines
     assert "GROUP False" in lines, lines
     assert "LOADED []" in lines, lines
+
+
+BENCH_PROBE = """
+import sys
+import osr_tpu_torch.bench
+print("LAZY", sorted(m for m in sys.modules if m.startswith("osr_tpu_torch")))
+import osr_tpu_torch.bench.common, osr_tpu_torch.bench.headline
+import osr_tpu_torch.bench.scaling, osr_tpu_torch.bench.hybrid
+import osr_tpu_torch.bench.dense_scale, osr_tpu_torch.bench.__main__
+bad = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "transformers", "yaml")
+    or m.startswith(("jax.", "jaxlib.", "osr_tpu.", "transformers.", "yaml."))
+)
+print("LOADED", bad)
+"""
+
+
+def test_bench_imports_without_jax_osr_tpu_transformers_or_yaml():
+    """osr_tpu_torch.bench loads none of its modules when imported, and
+    its modules load neither JAX, osr_tpu, transformers nor PyYAML."""
+    out = subprocess.run(
+        [sys.executable, "-c", BENCH_PROBE],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert "LAZY ['osr_tpu_torch', 'osr_tpu_torch.bench']" in lines, lines
+    assert "LOADED []" in lines, lines
