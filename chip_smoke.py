@@ -146,8 +146,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    device and a host probe per pass and this card's line, with K2
    launched in its passes and K7 + K5 in its dense leg; hybrid --fusion
    rrf at full size (K2, K7, K5); scaling --head-dtype int4 (K3) at
-   200,000 docs; dense-scale at 1M x 768 (K7 + K5, K7 + K6). A mode that
-   exits non-zero, or outlives 300 s (it is killed), fails the run.
+   200,000 docs; dense-scale at 1M x 768 (K7 + K5, K7 + K6); batch-curve
+   (B = 8 to 6,656, each batch's queries counted and K2 launched);
+   int4-quality at 250,000 docs (K2 on the int8 head, K3 on the int4
+   head, each engine held to the plain head by the merge check on 256
+   queries; the overlaps printed beside the committed TPU row);
+   dense-encoder (K7 + K5 on the symmetric leg, K7 + K6 on the int4 leg,
+   each equal to backend='torch' bit for bit); then the prose harvest
+   of this interpreter's library trees, counted root by root: at 20,000
+   chunks or more quality-at-scale (noisy, dense hashing, f32 control)
+   and fusion-sweep at their defaults, below it both must refuse and
+   their functions run on the chunks there are; each launches a head
+   kernel (K2, or K1 below the block-prune floor), K7 and K5, the sweep
+   has the script's 13 points in its order, and bm25_custom's IR metrics
+   (and the sweep's sparse_only row) equal a run on the plain head. A
+   mode that exits non-zero, or outlives 300 s (it is killed), fails the
+   run.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
 (with ``surface_launches`` and ``pipeline_launches``, phase 6's and phase
@@ -181,6 +195,8 @@ import torch
 # one definition, shared with the port's measurement entry points.
 from osr_tpu_torch.bench.common import (
     BATCH,
+    INT8_HEAD_KERNELS,
+    MERGE_QUERIES,
     NUM_QUERIES,
     PEAK_BF16_FLOPS,
     PEAK_BYTES,
@@ -188,16 +204,19 @@ from osr_tpu_torch.bench.common import (
     PEAK_INT8_OPS,
     TOP_K,
     all_launches,
+    bench_case,
     card_line,
     check_host_runtime,
     head_work,
     make_corpus,
     make_queries,
+    merge_check,
+    prose_roots,
     reset_all_launches,
+    same_results,
 )
 
 DEEP_K = 1_000  # the depth BEIR evaluation retrieves
-MERGE_QUERIES = 256
 DENSE_DOCS = 1_000_000
 DENSE_DIM = 768
 DENSE_BATCH = 1_024
@@ -908,22 +927,6 @@ def blocktopm_small_checks(dev):
                     f"max_abs_err={err:.3e}")
 
 
-def bench_case(engine, texts, chunk=None):
-    """The main path's own kernel inputs for one batch of queries: the
-    engine's head, or one of its row chunks."""
-    from osr_tpu_torch.ops.bm25 import scatter_query_head
-
-    d = engine._dev
-    head, valid = (d.head, d.valid) if chunk is None else d.chunks[chunk]
-    enc = engine.encode_queries(texts)
-    ids = torch.from_numpy(enc.head_ids).to(engine.device)
-    w = torch.from_numpy(enc.head_weights).to(engine.device)
-    qhead = scatter_query_head(
-        ids, w, head_terms=engine.index.layout.head_terms
-    )
-    return head, d.head_scales, qhead, valid
-
-
 # ----------------------------------------------------------------------
 # Main path
 # ----------------------------------------------------------------------
@@ -954,66 +957,6 @@ def check_results(results, queries, top_k):
     if nonempty < 0.9 * len(queries):
         fail(f"only {nonempty}/{len(queries)} queries returned documents")
     return nonempty
-
-
-def same_results(got, want, rtol=1e-5):
-    """Same ids in the same order, except at near-ties (scores within rtol
-    of a neighbour), and scores within rtol."""
-    for qid, w in want.items():
-        g = got[qid]
-        if len(g) != len(w):
-            return False
-        gs, ws = np.array(list(g.values())), np.array(list(w.values()))
-        if not np.allclose(gs, ws, rtol=rtol, atol=0):
-            return False
-        for i, (a, b) in enumerate(zip(g, w)):
-            if a != b and i != len(ws) - 1 and not any(
-                abs(ws[i] - ws[j]) <= rtol * abs(ws[i])
-                for j in (i - 1, i + 1) if 0 <= j < len(ws)
-            ):
-                return False
-    return True
-
-
-def merge_check(engine, plain_engine, queries):
-    """Kernel engine == plain engine on MERGE_QUERIES queries, and the
-    kernel's candidate head scores are within the merge slack of the host's
-    candidate head dots."""
-    from osr_tpu_torch.index import postings as P
-    from osr_tpu_torch.ops import head as H
-
-    sub = dict(list(queries.items())[:MERGE_QUERIES])
-    got = engine.search(sub, top_k=TOP_K)
-    want = plain_engine.search(sub, top_k=TOP_K)
-    if not same_results(got, want):
-        fail("kernel engine and plain engine disagree")
-    layout = engine.index.layout
-    head, scales, qhead, valid = bench_case(engine, list(sub.values()))
-    enc = engine.encode_queries(list(sub.values()))
-    hs, _ = H.masked_head_scores_blockmax(head, scales, qhead, valid)
-    cand = P.tail_candidates_flat(
-        layout.post_ptr, layout.post_rows, layout.post_weights,
-        enc.tail_ids, enc.tail_counts, enc.tail_ptr,
-        enc.head_ids.shape[0], num_rows=head.shape[0],
-    )
-    host_head, host_dtype, head_t, slack_per_term = P.prepare_host_merge(
-        layout
-    )
-    host = P.cand_head_scores_host(
-        host_head, host_dtype, layout.head_scales, cand,
-        enc.head_flat_ids, enc.head_flat_counts, enc.head_ptr, head_t=head_t,
-    )
-    slack = P.merge_tau_slack(
-        slack_per_term, enc.head_flat_ids, enc.head_flat_counts, enc.head_ptr
-    )
-    n = cand.total
-    rows = torch.from_numpy(cand.rows[:n].astype(np.int64)).to(hs.device)
-    cols = torch.from_numpy(cand.cols[:n].astype(np.int64)).to(hs.device)
-    dev = hs[cols, rows].cpu().numpy()
-    gap = np.abs(dev.astype(np.float64) - host) - slack[cand.cols[:n]]
-    if n == 0 or not np.all(gap <= 0):
-        fail(f"merge slack violated ({n} candidates, worst {gap.max()})")
-    return n
 
 
 def batch_stages(engine, texts, top_k):
@@ -1934,36 +1877,35 @@ def bench_spec(scratch):
     return counts
 
 
+def quality_run(ds, methods, out_dir, **engine_kwargs):
+    """``bench.quality_at_scale.benchmark`` over ``ds`` (top_k=100, cuda),
+    every SparseSearchEngine built with ``engine_kwargs``; returns its
+    summaries and the kernels launched, failing if a method failed."""
+    import functools
+
+    from osr_tpu_torch.bench import quality_at_scale as qas
+    from osr_tpu_torch.retrieval import registry
+
+    engine = registry.SparseSearchEngine
+    registry.SparseSearchEngine = functools.partial(engine, **engine_kwargs)
+    try:
+        return qas.benchmark(ds, out_dir, methods, torch.device("cuda"))
+    except RuntimeError as e:
+        fail(f"quality benchmark {out_dir.name} {e}")
+    finally:
+        registry.SparseSearchEngine = engine
+
+
 def quality_at_scale(ds, scratch):
     """Phase 8 (b): run_quality_benchmark over phase 7's FiQA-scale
     dataset, bm25 and tfidf at top_k=100 on cuda (K2), against the same
     run with every engine's head on the plain version. Returns the
     kernel run's launches."""
-    import functools
-
-    from osr_tpu_torch.benchmarks.quality import run_quality_benchmark
-    from osr_tpu_torch.retrieval import registry
-
-    def run(out, **engine_kwargs):
-        engine = registry.SparseSearchEngine
-        registry.SparseSearchEngine = functools.partial(engine, **engine_kwargs)
-        reset_all_launches()
-        try:
-            res = run_quality_benchmark(
-                ds, methods=QUALITY_METHODS, out_dir=scratch / out,
-                top_k=SURFACE_TOP_K, device="cuda",
-            )
-        finally:
-            registry.SparseSearchEngine = engine
-        torch.cuda.synchronize()
-        for m, r in res.items():
-            if "error" in r:
-                fail(f"quality benchmark {out} {m}: {r['error']}")
-        return res, all_launches()
-
-    got, counts = run("quality")
-    want, plain_counts = run("quality_plain", head_backend="torch")
-    if counts["head_blockmax_i8"] == 0:
+    got, counts = quality_run(ds, QUALITY_METHODS, scratch / "quality")
+    want, plain_counts = quality_run(
+        ds, QUALITY_METHODS, scratch / "quality_plain", head_backend="torch"
+    )
+    if not counts.get("head_blockmax_i8"):
         fail("the quality benchmark launched no head_blockmax_i8")
     if any(plain_counts.values()):
         fail(f"the plain-head quality run launched kernels: {plain_counts}")
@@ -2917,8 +2859,9 @@ def sharded_phase(indexes, queries, emb, scratch):
 
 # dense-scale runs at its 1M default. scaling runs at 200,000 docs, cut
 # from 1M because its 1M index takes about 2 minutes to build on the host
-# (phase 10 builds one already), which would take the whole script past
-# 10 minutes; it takes the int4 head (K3), which no other mode reaches.
+# (phase 9 builds one already); it takes the int4 head (K3), which no
+# other mode reaches. batch-curve, int4-quality and dense-encoder run at
+# their defaults; quality-at-scale and fusion-sweep follow (prose_modes).
 BENCH_SCALE_DOCS = 200_000
 BENCH_MODES = (
     # (the mode's arguments, the kernels each of its rows must launch)
@@ -2928,18 +2871,30 @@ BENCH_MODES = (
     (("scaling", "--docs", str(BENCH_SCALE_DOCS), "--head-dtype", "int4"),
      ("head_blockmax_i4",)),
     (("dense-scale",), None),
+    (("batch-curve",), ("head_blockmax_i8",)),
+    (("int4-quality",), None),
+    (("dense-encoder",), None),
 )
 BENCH_DENSE_KERNELS = {
     "symmetric": ("quantize_symmetric", "int8_similarity"),
     "int4": ("quantize_symmetric", "int4_similarity"),
 }
 BENCH_TIMEOUT_S = 300  # one mode's process; it is killed after
+# The committed TPU rows of bench_results/int4_quality.jsonl (overlap@10,
+# overlap@50): a quality artifact, printed beside the card's for the
+# reader and no gate (the TPU's f32 head was XLA's default-precision
+# product, the port's an f32 product with TF32 off).
+TPU_HEAD_OVERLAPS = {"int8": (0.992, 0.9931), "int4": (0.9464, 0.9514)}
+QAS_ARGS = ("quality-at-scale", "--query-mode", "noisy", "--dense-hashing",
+            "--f32-control")
 
 
-def bench_mode(args):
+def bench_mode(args, refused=False):
     """``python -m osr_tpu_torch.bench *args`` in its own process, from this
     checkout; returns the JSON rows it printed, failing on a non-zero exit
-    or a process that outlives BENCH_TIMEOUT_S (it is killed)."""
+    or a process that outlives BENCH_TIMEOUT_S (it is killed). With
+    ``refused`` the mode must refuse: exit 1 and one row with no value and
+    the reason."""
     label = " ".join(args) or "headline"
     t0 = time.perf_counter()
     try:
@@ -2950,13 +2905,16 @@ def bench_mode(args):
         )
     except subprocess.TimeoutExpired:
         fail(f"phase 13 {label}: no answer in {BENCH_TIMEOUT_S} s (killed)")
-    if res.returncode != 0:
+    if res.returncode != (1 if refused else 0):
         fail(f"phase 13 {label}: exit {res.returncode}:\n"
              f"{res.stderr[-4000:]}")
     rows = [json.loads(ln) for ln in res.stdout.splitlines()
             if ln.startswith("{")]
     if not rows:
         fail(f"phase 13 {label}: printed no row")
+    if refused and (len(rows) != 1 or rows[0]["value"] is not None
+                    or "need >=" not in rows[0]["error"]):
+        fail(f"phase 13 {label}: no refusal: {rows}")
     log(f"phase 13 {label}: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         log(f"phase 13 {label} row: {json.dumps(row)}")
@@ -3003,7 +2961,148 @@ def check_headline(line, card, total):
                    BENCH_DENSE_KERNELS["symmetric"], total)
 
 
-def bench_phase(card):
+def check_batch_curve(rows, card, total):
+    """One row a batch size, in order, each timing the queries it says
+    (as many as exist) and launching K2."""
+    from osr_tpu_torch.bench import batch_curve
+
+    if [r["batch"] for r in rows] != list(batch_curve.BATCHES):
+        fail(f"phase 13 batch-curve: batches {[r['batch'] for r in rows]}")
+    for r in rows:
+        b = r["batch"]
+        n = batch_curve.timed_count(b, NUM_QUERIES)
+        if (r["queries_timed"] != n or not r["qps_median"] > 0
+                or r["device"] != card):
+            fail(f"phase 13 batch-curve B={b}: {r}")
+        check_launched(f"batch-curve B={b}", r["kernel_launches"],
+                       ("head_blockmax_i8",), total)
+
+
+def check_int4_quality(rows, card, total):
+    """The int8 row on K2, the int4 row on K3, each engine held to the
+    plain head by the merge check in the mode; the overlaps printed beside
+    the committed TPU row."""
+    from osr_tpu_torch.bench import int4_quality
+
+    if [r["head_dtype"] for r in rows] != ["int8", "int4"]:
+        fail(f"phase 13 int4-quality: rows {rows}")
+    for r in rows:
+        dtype = r["head_dtype"]
+        if (not r["merge_checked_candidates"] or r["device"] != card
+                or not 0 < r["overlap_at_10"] <= 1
+                or not 0 < r["overlap_at_50"] <= 1
+                or r["num_queries"] < 0.9 * int4_quality.NUM_QUERIES):
+            fail(f"phase 13 int4-quality {dtype}: {r}")
+        check_launched(f"int4-quality {dtype}", r["kernel_launches"],
+                       (int4_quality.KERNEL[dtype],), total)
+        tpu = TPU_HEAD_OVERLAPS[dtype]
+        log(f"phase 13 int4-quality {dtype} head against f32: overlap@10 "
+            f"{r['overlap_at_10']} (the TPU row {tpu[0]}), overlap@50 "
+            f"{r['overlap_at_50']} ({tpu[1]}); score MAE "
+            f"{r['score_mae_on_f32_top50']}, relative "
+            f"{r['score_mae_rel_top1']}; {r['merge_checked_candidates']} "
+            "candidates within the merge slack of the plain head")
+
+
+def check_dense_encoder(rows, card, total):
+    """The kernel legs on the card's kernels (equal to backend='torch' bit
+    for bit, which the mode checks), the others plain, every leg scored."""
+    from osr_tpu_torch.bench import dense_encoder
+
+    r = rows[-1]
+    for key, _, kernels in dense_encoder.LEGS:
+        want = "cuda" if kernels else "torch"
+        recall = r[key].get(f"recall@{r['top_k']}", -1)
+        if r["dense_backends"][key] != want or not 0 <= recall <= 1:
+            fail(f"phase 13 dense-encoder {key}: backend "
+                 f"{r['dense_backends'][key]}, recall {recall}")
+    if r["kernel_route_equals_plain"] is not True or r["device"] != card:
+        fail(f"phase 13 dense-encoder: {r}")
+    check_launched("dense-encoder", r["kernel_launches"],
+                   BENCH_DENSE_KERNELS["symmetric"] + ("int4_similarity",),
+                   total)
+
+
+def prose_modes(card, total, scratch):
+    """quality-at-scale (noisy, dense hashing, f32 control) and
+    fusion-sweep over this machine's prose harvest: counted root by root
+    first; at MIN_CHUNKS or more both CLIs at their defaults, below it
+    both CLIs must refuse and the modes' functions run on the chunks
+    there are. Then bm25_custom's IR metrics (and the sweep's sparse_only
+    row) must equal a run whose head step is the plain version."""
+    import contextlib
+
+    from osr_tpu_torch.bench import fusion_sweep
+    from osr_tpu_torch.bench import quality_at_scale as qas
+    from osr_tpu_torch.testing import build_dataset, harvest_chunks
+
+    t0 = time.perf_counter()
+    roots = prose_roots()
+    for root in roots:
+        log(f"phase 13 prose harvest: {len(harvest_chunks([root]))} chunks "
+            f"under {root}")
+    chunks = harvest_chunks(roots, 100_000)
+    log(f"phase 13 prose harvest: {len(chunks)} chunks in all (floor "
+        f"{qas.MIN_CHUNKS}), {time.perf_counter() - t0:.1f} s")
+    if len(chunks) >= qas.MIN_CHUNKS:
+        at_scale = bench_mode(QAS_ARGS)[-1]
+        sweep = bench_mode(("fusion-sweep",))[-1]
+    else:
+        bench_mode(QAS_ARGS, refused=True)
+        bench_mode(("fusion-sweep",), refused=True)
+        log(f"below the at-scale floor: {len(chunks)} chunks")
+        with contextlib.redirect_stdout(sys.stderr):
+            at_scale = qas.run(
+                chunks, num_queries=512, query_mode="noisy",
+                dense_hashing=True, f32_control=True, roots=roots,
+                device="cuda",
+            )
+            sweep = fusion_sweep.run(chunks, device="cuda")
+    for label, out in (("quality-at-scale", at_scale),
+                       ("fusion-sweep", sweep)):
+        if out["num_docs"] != len(chunks) or out["device"] != card:
+            fail(f"phase 13 {label}: {out['num_docs']} docs on "
+                 f"{out['device']}")
+        check_launched(label, out["kernel_launches"],
+                       BENCH_DENSE_KERNELS["symmetric"], total)
+        if not any(out["kernel_launches"].get(k) for k in INT8_HEAD_KERNELS):
+            fail(f"phase 13 {label}: launched no head kernel")
+    configs = [(r["config"], r.get("sparse_weight"), r.get("rrf_k"))
+               for r in sweep["sweep"]]
+    want = ([("sparse_only", None, None), ("dense_only", None, None)]
+            + [("weighted", w, None) for w in fusion_sweep.WEIGHTED]
+            + [("rrf", w, k) for w, _, k in fusion_sweep.RRF_POINTS])
+    if configs != want:
+        fail(f"phase 13 fusion-sweep: configs {configs}")
+
+    ds = scratch / "prose_plain"
+    build_dataset(ds, chunks, 512, mode="noisy")
+    plain, plain_counts = quality_run(ds, ("bm25_custom",), scratch /
+                                      "prose_plain_reports",
+                                      head_backend="torch")
+    if any(plain_counts.values()):
+        fail(f"phase 13 plain-head quality run launched {plain_counts}")
+    want = plain["bm25_custom"]
+    got = at_scale["osr_tpu"]["bm25_custom"]
+    sparse_only = sweep["sweep"][0]
+    ir = sorted(k for k in want if "@" in k)
+    diff = {k: (got[k], sparse_only[k], want[k]) for k in ir
+            if got[k] != want[k] or sparse_only[k] != round(want[k], 4)}
+    if not ir or diff:
+        fail(f"phase 13 prose: the kernel head's bm25 IR metrics differ "
+             f"from the plain head's: {diff}")
+    bm = {k: round(v, 4) for k, v in got.items() if "@" in k}
+    log(f"phase 13 quality-at-scale bm25_custom (noisy, "
+        f"{at_scale['num_docs']} docs, {at_scale['num_queries']} queries): "
+        f"{json.dumps(bm)}, equal "
+        "to the plain head's; f32 head nDCG@10 "
+        f"{at_scale['osr_tpu_f32head']['bm25_custom']['ndcg@10']:.4f}; "
+        + ", ".join(f"{m} {s['ndcg@10']:.4f}" for m, s in
+                    at_scale["osr_tpu_dense_hashing"].items()))
+    log(f"phase 13 prose modes took {time.perf_counter() - t0:.1f} s")
+
+
+def bench_phase(card, scratch):
     """Phase 13: each mode of ``python -m osr_tpu_torch.bench`` on the card;
     returns each kernel's launches, summed over the modes' measured
     passes."""
@@ -3015,6 +3114,15 @@ def bench_phase(card):
             check_headline(rows[-1], card, total)
             continue
         mode = args[0]
+        if mode == "batch-curve":
+            check_batch_curve(rows, card, total)
+            continue
+        if mode == "int4-quality":
+            check_int4_quality(rows, card, total)
+            continue
+        if mode == "dense-encoder":
+            check_dense_encoder(rows, card, total)
+            continue
         if mode == "dense-scale":
             if [r["quantization"] for r in rows] != ["symmetric", "int4"]:
                 fail(f"phase 13 dense-scale: rows {rows}")
@@ -3032,6 +3140,7 @@ def bench_phase(card):
         if not qps > 0 or done < 0.9 * queries:
             fail(f"phase 13 {mode}: QPS {qps}, {done}/{queries} non-empty")
         check_launched(mode, row["kernel_launches"], kernels, total)
+    prose_modes(card, total, scratch)
     log(f"phase 13 (measurement entry points) took "
         f"{time.perf_counter() - t0:.1f} s; launches {total}")
     return total
@@ -3319,7 +3428,8 @@ def main():
     torch.cuda.empty_cache()
     log(f"sharded engines done at {time.perf_counter() - t_start:.1f} s")
 
-    bench = bench_phase(card)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as scratch:
+        bench = bench_phase(card, Path(scratch))
     for r in rows:
         if r["name"] in surface:
             r["surface_launches"] = surface[r["name"]]

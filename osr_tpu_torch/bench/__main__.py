@@ -1,10 +1,14 @@
 """``python -m osr_tpu_torch.bench [mode] [options]``: the mode is one of
-headline (the default), scaling, hybrid and dense-scale; the options are
-the mode's own (``--help`` after the mode lists them)."""
+headline (the default), scaling, hybrid, dense-scale, batch-curve,
+int4-quality, quality-at-scale, fusion-sweep and dense-encoder; the
+options are the mode's own (``--help`` after the mode lists them)."""
 
 import sys
 
-MODES = ("headline", "scaling", "hybrid", "dense-scale")
+MODES = (
+    "headline", "scaling", "hybrid", "dense-scale", "batch-curve",
+    "int4-quality", "quality-at-scale", "fusion-sweep", "dense-encoder",
+)
 
 
 def main(argv=None) -> int:

@@ -360,8 +360,10 @@ def build_standin_encoder(
     device=None,
 ):
     """``tools/bench_dense_encoder.py``'s deterministic stand-in on this
-    package's modules: a seeded BERT (4 heads, intermediate 4 x hidden,
-    512 positions) over a WordPiece vocabulary of the five specials plus
+    package's modules: a BERT (4 heads, intermediate 4 x hidden, 512
+    positions) with weights drawn from a ``torch.Generator`` seeded with
+    ``seed`` (not Flax's initialisation, so its name starts ``torch-``)
+    over a WordPiece vocabulary of the five specials plus
     ``vocab_terms``; max_length 128, batches of 128, fixed shapes."""
     import torch
 
@@ -384,7 +386,7 @@ def build_standin_encoder(
     )
     model = BertModel(cfg, generator=torch.Generator().manual_seed(seed))
     return HFEncoder(
-        f"standin-bert-{layers}l-{hidden}h-seed{seed}-{dtype}",
+        f"torch-standin-bert-{layers}l-{hidden}h-seed{seed}-{dtype}",
         model=model,
         tokenizer=tokenizer,
         max_length=128,

@@ -1,7 +1,8 @@
 """The port's measurement entry points (osr_tpu_torch/bench/) against the
 JAX system's scripts they port: bench.py, tools/bench_scaling.py,
 tools/bench_hybrid.py and tools/bench_dense_scale.py, all on the CPU at
-small sizes.
+small sizes; the row keys of the five later modes too (their results
+against osr_tpu are in tests/test_torch_bench_tools.py).
 
 The scripts' output keys are read from their source with ``ast``; the
 headline's sparse results are held to osr_tpu's SparseSearchEngine on the
@@ -24,7 +25,18 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from osr_tpu_torch.bench import common, dense_scale, headline, hybrid, scaling
+from osr_tpu_torch.bench import (
+    batch_curve,
+    common,
+    dense_encoder,
+    dense_scale,
+    fusion_sweep,
+    headline,
+    hybrid,
+    int4_quality,
+    quality_at_scale,
+    scaling,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL_DOCS = 2_000
@@ -239,6 +251,16 @@ def _stdout_rows(fn, *args, **kwargs):
     return [json.loads(line) for line in buf.getvalue().splitlines()]
 
 
+def _prose_chunks(n=400, seed=4):
+    """Seeded 48-word chunks over a Zipf-drawn vocabulary of words of at
+    least four letters (the noisy queries' confounders)."""
+    rng = np.random.RandomState(seed)
+    vocab = [f"word{i}" for i in range(2_000)]
+    p = 1.0 / np.arange(1, len(vocab) + 1)
+    p /= p.sum()
+    return [" ".join(rng.choice(vocab, 48, p=p)) for _ in range(n)]
+
+
 SCALING_ARGS = ["--docs", "3000", "--queries", "64", "--batch", "64", "--cpu"]
 TOOL_ROWS = {
     # tool: (script, the row's name there, the port's rows)
@@ -251,11 +273,39 @@ TOOL_ROWS = {
     "dense_scale": ("tools/bench_dense_scale.py", "row", lambda: _stdout_rows(
         dense_scale.main, ["--docs", "3000", "--batch", "64", "--passes",
                            "2", "--cpu", "--backend", "torch"])),
+    "batch_curve": ("tools/bench_batch_curve.py", "row", lambda: _stdout_rows(
+        batch_curve.run, docs=SMALL_DOCS, vocab=12_000, batches=(64,),
+        num_queries=256, passes=1, device="cpu")),
+    "int4_quality": ("tools/bench_int4_quality.py", "row", lambda: _stdout_rows(
+        int4_quality.run, num_docs=SMALL_DOCS, vocab=12_000, num_queries=64,
+        head_terms=256, device="cpu")),
+    "quality_at_scale": ("tools/bench_quality_at_scale.py", "at_scale",
+                         lambda: _stdout_rows(
+        quality_at_scale.run, _prose_chunks(), num_queries=16,
+        query_mode="noisy", dense_hashing=True, f32_control=True,
+        device="cpu")),
+    "fusion_sweep": ("tools/bench_fusion_sweep.py", "run", lambda: _stdout_rows(
+        fusion_sweep.run, _prose_chunks(), num_queries=16, device="cpu")),
+    "dense_encoder": ("tools/bench_dense_encoder.py", "out", lambda: _stdout_rows(
+        dense_encoder.main, ["--docs", "300", "--vocab", "600", "--queries",
+                             "16", "--dtype", "float32", "--cpu"])),
 }
 EXTRA_KEYS = {
     "scaling": {"metric", "kernel_launches", "device_peak_above_index_mb"},
     "hybrid": {"kernel_launches"},
     "dense_scale": {"kernel_launches"},
+    "batch_curve": {"kernel_launches"},
+    "int4_quality": {"kernel_launches", "merge_checked_candidates"},
+    "quality_at_scale": {"kernel_launches", "device"},
+    "fusion_sweep": {"kernel_launches"},
+    "dense_encoder": {"kernel_launches", "dense_backends",
+                      "kernel_route_equals_plain"},
+}
+# The keys a script sets only from its reference leg, which runs the
+# reference project's code from outside the repository: not ported.
+ABSENT_KEYS = {
+    "quality_at_scale": {"ndcg10_delta_osr_minus_ref",
+                         "ndcg10_delta_f32head_minus_ref"},
 }
 
 
@@ -265,12 +315,14 @@ def test_tool_rows_hold_the_jax_tools_keys(tool):
     keys it sets later), plus the port's launch counts."""
     script, name, make = TOOL_ROWS[tool]
     keys, later = _dict_keys(REPO / script, name)
+    absent = ABSENT_KEYS.get(tool, set())
+    assert absent <= later
+    want = (keys | later) - absent | EXTRA_KEYS[tool]
     rows = make()
     assert rows
     for row in rows:
-        assert keys | later | EXTRA_KEYS[tool] <= set(row), (
-            (keys | later | EXTRA_KEYS[tool]) - set(row)
-        )
+        assert want <= set(row), want - set(row)
+        assert not absent & set(row)
         assert row["device"] == "cpu"
         assert row["kernel_launches"] in ({}, dict.fromkeys(
             row["kernel_launches"], 0))
@@ -283,6 +335,20 @@ def test_tool_rows_hold_the_jax_tools_keys(tool):
     if tool == "scaling":
         assert rows[0]["qps_exact"] > 0 and rows[0]["score_chunks"] == 0
         assert rows[0]["device_peak_above_index_mb"] is None
+    if tool == "batch_curve":
+        assert rows[0]["batch"] == 64 and rows[0]["queries_timed"] == 256
+    if tool == "int4_quality":
+        assert [r["head_dtype"] for r in rows] == ["int8", "int4"]
+    if tool == "quality_at_scale":
+        assert rows[0]["reference"] is None
+        assert list(rows[0]["osr_tpu_dense_hashing"]) == list(
+            quality_at_scale.DENSE_METHODS)
+    if tool == "fusion_sweep":
+        sweep_keys, _ = _dict_keys(REPO / script, "row")
+        assert len(rows[0]["sweep"]) == 13
+        assert all(sweep_keys <= set(r) for r in rows[0]["sweep"])
+    if tool == "dense_encoder":
+        assert rows[0]["kernel_route_equals_plain"] is None
 
 
 def test_scaling_saved_index_loads_back(tmp_path):
@@ -348,7 +414,8 @@ def test_hybrid_fusion_check_raises(bad):
 
 @pytest.mark.parametrize("mode", [
     [], ["headline"], ["scaling", "--docs", "10"], ["hybrid"],
-    ["dense-scale"],
+    ["dense-scale"], ["batch-curve"], ["int4-quality"],
+    ["quality-at-scale"], ["fusion-sweep"], ["dense-encoder"],
 ])
 def test_cli_without_a_card_prints_no_value(mode):
     """Without a CUDA device each mode prints its JSON line with no value
@@ -362,7 +429,12 @@ def test_cli_without_a_card_prints_no_value(mode):
     line = json.loads(res.stdout.splitlines()[-1])
     assert line["value"] is None and line["error"] == common.NO_CARD
     metric = {"scaling": scaling.METRIC, "hybrid": hybrid.METRIC,
-              "dense-scale": dense_scale.METRIC}.get(
+              "dense-scale": dense_scale.METRIC,
+              "batch-curve": batch_curve.METRIC,
+              "int4-quality": int4_quality.METRIC,
+              "quality-at-scale": quality_at_scale.METRIC,
+              "fusion-sweep": fusion_sweep.METRIC,
+              "dense-encoder": dense_encoder.METRIC}.get(
         mode[0] if mode else "headline", headline.METRIC)
     assert line["metric"] == metric
 

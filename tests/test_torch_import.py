@@ -255,6 +255,9 @@ print("LAZY", sorted(m for m in sys.modules if m.startswith("osr_tpu_torch")))
 import osr_tpu_torch.bench.common, osr_tpu_torch.bench.headline
 import osr_tpu_torch.bench.scaling, osr_tpu_torch.bench.hybrid
 import osr_tpu_torch.bench.dense_scale, osr_tpu_torch.bench.__main__
+import osr_tpu_torch.bench.batch_curve, osr_tpu_torch.bench.int4_quality
+import osr_tpu_torch.bench.quality_at_scale, osr_tpu_torch.bench.fusion_sweep
+import osr_tpu_torch.bench.dense_encoder
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "transformers", "yaml")
