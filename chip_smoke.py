@@ -146,7 +146,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    device and a host probe per pass and this card's line, with K2
    launched in its passes and K7 + K5 in its dense leg; hybrid --fusion
    rrf at full size (K2, K7, K5); scaling --head-dtype int4 (K3) at
-   200,000 docs; dense-scale at 1M x 768 (K7 + K5, K7 + K6); batch-curve
+   200,000 docs; dense-scale at 200,000 x 768 (K7 + K5, K7 + K6); batch-curve
    (B = 8 to 6,656, each batch's queries counted and K2 launched);
    int4-quality at 250,000 docs (K2 on the int8 head, K3 on the int4
    head, each engine held to the plain head by the merge check on 256
@@ -159,16 +159,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
    their functions run on the chunks there are; each launches a head
    kernel (K2, or K1 below the block-prune floor), K7 and K5, the sweep
    has the script's 13 points in its order, and bm25_custom's IR metrics
-   (and the sweep's sparse_only row) equal a run on the plain head. A
-   mode that exits non-zero, or outlives 300 s (it is killed), fails the
-   run.
+   (and the sweep's sparse_only row) equal a run on the plain head; then
+   sharded-scale at 50,000 docs (8 gloo ranks on this card, mesh (2,
+   4): 0 mismatched queries against the flat engine, 0
+   differing dicts, K2 on every rank), sharded-overhead (a world of one
+   under NCCL against the flat engine, 0 and 0, K2 in both engines; again
+   with narrow_m=8 and extraction, K4-i8 in both), its overhead printed
+   beside phase 12 (a)'s step ratio, profile-trace (a torch.profiler
+   trace whose K2 events are as many as K2's launches; the top ten device
+   operations printed), profile-latency (B=1, K2 on every iteration; the
+   stage p50s beside search()'s) and profile-search at B = 8, 128 and
+   1,024 (K2). A mode that exits non-zero, or outlives 300 s (it is
+   killed), fails the run.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
 (with ``surface_launches`` and ``pipeline_launches``, phase 6's and phase
 7's launches, on K2's, K7's and K5's, and ``benchmarks_launches``,
 ``sharded_launches`` and ``bench_launches``, phases 8's, 12's (both ranks
-of (b) included) and 13's (the modes' measured passes), on every
-kernel's),
+of (b) included) and 13's (the modes' measured passes, sharded-scale's
+eight ranks included), on every kernel's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 
@@ -191,8 +200,10 @@ import numpy as np
 import torch
 
 # bench.py's workload (BATCH = 3,328: two batches per pass), the H100's
-# peaks, the head kernels' byte and operation count and the launch counts:
-# one definition, shared with the port's measurement entry points.
+# peaks, the head kernels' byte and operation count, the launch counts,
+# one batch stage by stage, CUDA-event timing and the index state handed
+# to spawned ranks: one definition, shared with the port's measurement
+# entry points.
 from osr_tpu_torch.bench.common import (
     BATCH,
     INT8_HEAD_KERNELS,
@@ -207,9 +218,13 @@ from osr_tpu_torch.bench.common import (
     bench_case,
     card_line,
     check_host_runtime,
+    differing_dicts,
     head_work,
+    index_state,
     make_corpus,
     make_queries,
+    median_ms,
+    median_stages,
     merge_check,
     prose_roots,
     reset_all_launches,
@@ -385,23 +400,6 @@ def check_sass():
             if not all(counts.get(name, {}).get(op) for op in required):
                 fail(f"{name}: its SASS lacks one of {required} ({counts})")
     return counts
-
-
-def median_ms(fn, reps, warmup=2):
-    """Median over ``reps`` single calls, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 # ----------------------------------------------------------------------
@@ -957,60 +955,6 @@ def check_results(results, queries, top_k):
     if nonempty < 0.9 * len(queries):
         fail(f"only {nonempty}/{len(queries)} queries returned documents")
     return nonempty
-
-
-def batch_stages(engine, texts, top_k):
-    """Wall time (ms) of each stage of one batch, run one after another
-    (inside search() the candidate head dots overlap the device step, or
-    wait for it where the candidate filter applies)."""
-    from osr_tpu_torch.index import postings as P
-
-    d = engine._dev
-    ms = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        now = time.perf_counter()
-        ms[name] = (now - t) * 1e3
-        t = now
-
-    enc = engine.encode_queries(texts)
-    lap("encode")
-    cand = engine._tail_candidates(enc, enc.head_ids.shape[0])
-    lap("tail_walk")
-    top, rows, _ = engine.device_step(
-        engine._upload(enc.head_ids), engine._upload(enc.head_weights), top_k
-    )
-    top, rows = top.cpu().numpy(), rows.cpu().numpy()
-    lap("device_step_and_copy")
-    slack = P.merge_tau_slack(
-        engine._slack_per_term, enc.head_flat_ids, enc.head_flat_counts,
-        enc.head_ptr,
-    )
-    nq = max(1, len(enc.head_ptr) - 1)
-    if (
-        engine.cand_filter_per_query
-        and cand.total >= engine.cand_filter_per_query * nq
-    ):
-        cand = P.filter_candidates_by_tau(
-            cand, top, rows, top_k, slack, d.num_rows
-        )
-        lap("tau_filter")
-    cand_head = engine._cand_head_host(cand, enc)
-    lap("cand_head_dots")
-    scores, ids = P.merge_host(
-        top, rows, cand, cand_head, d.num_rows, top_k, tau_slack=slack
-    )
-    lap("merge")
-    engine._result_dicts(scores, ids)
-    lap("result_dicts")
-    return ms
-
-
-def median_stages(engine, texts, top_k, runs=3):
-    out = [batch_stages(engine, texts, top_k) for _ in range(runs)]
-    return {k: float(np.median([r[k] for r in out])) for k in out[0]}
 
 
 # ----------------------------------------------------------------------
@@ -2482,31 +2426,9 @@ SHARDED_SPARSE = (
 SHARDED_DENSE = (("symmetric", "int8_similarity"), ("int4", "int4_similarity"))
 
 
-def index_state(index):
-    """The keyword arguments of convert.index_from_arrays for ``index``:
-    how part (b) hands the host index to its ranks."""
-    lay = index.layout
-    return dict(
-        head=lay.head, head_scales=lay.head_scales, post_ptr=lay.post_ptr,
-        post_rows=lay.post_rows, post_weights=lay.post_weights,
-        valid=lay.valid, num_docs=lay.num_docs, vocab_size=lay.vocab_size,
-        head_terms=lay.head_terms, head_dtype=lay.head_dtype,
-        vocabulary=dict(index.vocabulary), doc_ids=list(index.doc_ids),
-        method=index.method, idf=index.idf, doc_lengths=index.doc_lengths,
-        avgdl=index.avgdl, k1=index.k1, b=index.b,
-    )
-
-
 def add_counts(total, counts):
     for name, n in counts.items():
         total[name] = total.get(name, 0) + n
-
-
-def differing(got, want):
-    """Queries whose result dicts differ (ids or scores)."""
-    if set(got) != set(want):
-        fail("sharded and flat results cover different queries")
-    return sum(got[q] != want[q] for q in want)
 
 
 def sharded_step_inputs(sh, texts):
@@ -2599,7 +2521,7 @@ def sharded_world_of_one(indexes, queries, emb, scratch):
     )
     try:
         mesh = make_mesh(1)
-        launches, want_sparse = {}, None
+        launches, want_sparse, world1 = {}, None, None
         texts = list(queries.values())[:BATCH]
         for label, dtype, k, opts, kernel in SHARDED_SPARSE:
             common = dict(batch_sizes=(BATCH,), cache_queries=False, **opts)
@@ -2621,7 +2543,7 @@ def sharded_world_of_one(indexes, queries, emb, scratch):
             add_counts(launches, counts)
             if counts[kernel] == 0:
                 fail(f"sharded {label} launched no {kernel}")
-            bad = differing(got, want)
+            bad = differing_dicts(got, want)
             if bad:
                 fail(f"sharded {label}: {bad} queries differ from the flat "
                      "engine")
@@ -2639,6 +2561,8 @@ def sharded_world_of_one(indexes, queries, emb, scratch):
                     f"QPS median of 3: sharded {qps:.1f} "
                     f"{[round(x, 1) for x in passes]}, flat {flat_qps:.1f} "
                     f"{[round(x, 1) for x in flat_passes]}")
+                world1 = dict(step_ms=step, flat_step_ms=flat_step, qps=qps,
+                              flat_qps=flat_qps)
             del flat, sh
             torch.cuda.empty_cache()
 
@@ -2697,7 +2621,7 @@ def sharded_world_of_one(indexes, queries, emb, scratch):
         torch.cuda.synchronize()
         counts = all_launches()
         add_counts(launches, counts)
-        bad = differing(got, want)
+        bad = differing_dicts(got, want)
         if bad:
             fail(f"sharded hybrid: {bad} queries differ from the flat hybrid")
         log(f"phase 12 (a) sharded hybrid RRF (top_k={SURFACE_TOP_K}): equal "
@@ -2707,7 +2631,7 @@ def sharded_world_of_one(indexes, queries, emb, scratch):
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    return launches, want_sparse, want_dense
+    return launches, want_sparse, want_dense, world1
 
 
 def two_rank_worker(rank, init_file, index_file, emb_file, queries, results):
@@ -2821,7 +2745,7 @@ def sharded_two_ranks(index8, emb, queries, want_sparse, want_dense, scratch):
         for name in ("head_blockmax_i8", "int8_similarity"):
             if rep["launches"][name] == 0:
                 fail(f"phase 12 (b): rank {rank} launched no {name}")
-        bad = differing(rep["sparse"], want_sparse)
+        bad = differing_dicts(rep["sparse"], want_sparse)
         if bad:
             fail(f"phase 12 (b): rank {rank}: {bad} queries differ from the "
                  "flat engine")
@@ -2841,27 +2765,32 @@ def sharded_two_ranks(index8, emb, queries, want_sparse, want_dense, scratch):
 
 
 def sharded_phase(indexes, queries, emb, scratch):
-    """Phase 12: (a) then (b); returns each kernel's sharded launches."""
+    """Phase 12: (a) then (b); returns each kernel's sharded launches and
+    part (a)'s int8 top_k=50 step and QPS, sharded and flat."""
     t0 = time.perf_counter()
-    launches, want_sparse, want_dense = sharded_world_of_one(
+    launches, want_sparse, want_dense, world1 = sharded_world_of_one(
         indexes, queries, emb, scratch
     )
     add_counts(launches, sharded_two_ranks(
         indexes["int8"], emb, queries, want_sparse, want_dense, scratch
     ))
     log(f"phase 12 (sharded engines) took {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, world1
 
 
 # ----------------------------------------------------------------------
 # Phase 13: the measurement entry points (osr_tpu_torch/bench/)
 # ----------------------------------------------------------------------
 
-# dense-scale runs at its 1M default. scaling runs at 200,000 docs, cut
-# from 1M because its 1M index takes about 2 minutes to build on the host
-# (phase 9 builds one already); it takes the int4 head (K3), which no
-# other mode reaches. batch-curve, int4-quality and dense-encoder run at
-# their defaults; quality-at-scale and fusion-sweep follow (prose_modes).
+# scaling runs at 200,000 docs, cut from 1M because its 1M index takes
+# about 2 minutes to build on the host (phase 9 builds one already); it
+# takes the int4 head (K3), which no other mode reaches. dense-scale runs
+# at 200,000 x 768, cut from its 1M default when the sharded and profiler
+# modes took the script to 989 s on an H100 (over 900 s of its 1,200 s
+# limit): phase 10 drives the same engines at 1M x 768 already (the
+# default ran 56-59 s, the cut about 20 s). batch-curve, int4-quality and dense-encoder run at their
+# defaults; quality-at-scale and fusion-sweep follow (prose_modes), then
+# the sharded and profiler modes (sharded_modes, profiler_modes).
 BENCH_SCALE_DOCS = 200_000
 BENCH_MODES = (
     # (the mode's arguments, the kernels each of its rows must launch)
@@ -2870,7 +2799,7 @@ BENCH_MODES = (
      ("head_blockmax_i8", "quantize_symmetric", "int8_similarity")),
     (("scaling", "--docs", str(BENCH_SCALE_DOCS), "--head-dtype", "int4"),
      ("head_blockmax_i4",)),
-    (("dense-scale",), None),
+    (("dense-scale", "--docs", str(BENCH_SCALE_DOCS)), None),
     (("batch-curve",), ("head_blockmax_i8",)),
     (("int4-quality",), None),
     (("dense-encoder",), None),
@@ -3102,10 +3031,112 @@ def prose_modes(card, total, scratch):
     log(f"phase 13 prose modes took {time.perf_counter() - t0:.1f} s")
 
 
-def bench_phase(card, scratch):
+# sharded-scale runs at 50,000 docs, cut from its 200,000 default for the
+# same limit (the default took 55.1-59.0 s on an H100); every
+# other option is the default: 8 ranks, mesh (2, 4), and each rank's step
+# still takes K2 (the block-pruned selection follows the whole index's
+# 391 blocks).
+BENCH_SHARDED_DOCS = 50_000
+
+
+def sharded_modes(card, total, world1):
+    """sharded-scale at BENCH_SHARDED_DOCS (8 gloo ranks on this card, mesh
+    (2, 4)) and sharded-overhead (a world of one under NCCL), standard and
+    extraction: 0 mismatches and 0 differing dicts each, the head kernel
+    on every rank and in both engines."""
+    row = bench_mode(("sharded-scale", "--docs", str(BENCH_SHARDED_DOCS)))[-1]
+    if (row["mismatched_queries_vs_single_device"]
+            or row["differing_dicts_vs_flat"] or row["devices"] != 8
+            or row["num_docs"] != BENCH_SHARDED_DOCS
+            or row["mesh"] != {"q": 2, "d": 4} or row["device"] != card
+            or row["platform"] != "cuda-gloo-shared"):
+        fail(f"phase 13 sharded-scale: {row}")
+    for rank, counts in enumerate(row["kernel_launches_by_rank"]):
+        check_launched(f"sharded-scale rank {rank}", counts,
+                       ("head_blockmax_i8",), {})
+    add_counts(total, row["kernel_launches"])
+    log(f"phase 13 sharded-scale ({row['num_docs']} docs, "
+        f"{row['rows_per_shard']} rows a shard, 8 ranks): build "
+        f"{row['build_s']} s, shard upload {row['shard_upload_s']} s, "
+        f"search {row['sharded_search_s']} s; peak RSS a rank (MiB) "
+        f"{row['rank_peak_rss_mb']}, device peak a rank (MiB) "
+        f"{row['rank_device_peak_mb']}")
+    for args, kernel in ((("sharded-overhead",), "head_blockmax_i8"),
+                         (("sharded-overhead", "--narrow-m", str(NARROW_M),
+                           "--narrow-backend", "extract"),
+                          "head_blocktopm_i8")):
+        label = " ".join(args)
+        row = bench_mode(args)[-1]
+        if (row["mismatched_queries_vs_flat"] or row["differing_dicts_vs_flat"]
+                or row["head_backend"] != "cuda" or row["device"] != card):
+            fail(f"phase 13 {label}: {row}")
+        for engine, counts in row["kernel_launches_by_engine"].items():
+            check_launched(f"{label} {engine}", counts, (kernel,), {})
+        add_counts(total, row["kernel_launches"])
+        log(f"phase 13 {label}: shard_map_overhead_pct "
+            f"{row['shard_map_overhead_pct']} (QPS median of 5: sharded "
+            f"{row['qps_sharded']}, flat {row['qps_flat']}); phase 12 (a): "
+            f"step sharded / flat {world1['step_ms']:.4f} / "
+            f"{world1['flat_step_ms']:.4f} ms (ratio "
+            f"{world1['step_ms'] / world1['flat_step_ms']:.4f}), QPS median "
+            f"of 3 {world1['qps']:.1f} / {world1['flat_qps']:.1f}")
+
+
+# profile-search runs at B = 8 and 128 besides its default 1,024: where
+# the batch curve's time goes at small batches.
+PROFILE_SEARCH_BATCHES = (8, 128, 1024)
+
+
+def profiler_modes(card, total):
+    """profile-trace (the trace's K2 events as many as the launches),
+    profile-latency (K2 on every iteration) and profile-search at
+    PROFILE_SEARCH_BATCHES (K2), at their defaults otherwise."""
+    from osr_tpu_torch.bench import profile_latency, profile_search
+
+    row = bench_mode(("profile-trace",))[-1]
+    k2 = row["kernel_launches"].get("head_blockmax_i8", 0)
+    if (row["kernel_trace_events"].get("head_blockmax_i8") != k2 or not k2
+            or row["trace_files"]
+            or not row["device_busy_share"] > 0 or row["device"] != card):
+        fail(f"phase 13 profile-trace: {row}")
+    add_counts(total, row["kernel_launches"])
+    log(f"phase 13 profile-trace: {k2} K2 launches, as many K2 events in "
+        f"the trace; device busy share {row['device_busy_share']}; QPS "
+        f"{row['passes_qps']}; top device operations (count, ms a pass): "
+        + "; ".join(f"{op['name'][:60]} ({op['count']}, "
+                    f"{op['ms_per_pass']})" for op in row["top_device_ops"]))
+
+    row = bench_mode(("profile-latency",))[-1]
+    if (row["kernel_launches"].get("head_blockmax_i8") != 2 * row["iters"]
+            or list(row["stages"]) != list(profile_latency.STAGES)
+            or row["device"] != card):
+        fail(f"phase 13 profile-latency: {row}")
+    add_counts(total, row["kernel_launches"])
+    log(f"phase 13 profile-latency B={row['batch']} p50 / p95 ms: "
+        + ", ".join(f"{k} {v['p50']} / {v['p95']}"
+                    for k, v in row["stages"].items())
+        + f"; engine search() e2e {row['engine_search_e2e_ms']['p50']} / "
+        f"{row['engine_search_e2e_ms']['p95']}")
+
+    for b in PROFILE_SEARCH_BATCHES:
+        row = bench_mode(("profile-search", "--batch", str(b)))[-1]
+        if (row["batch"] != b or row["device"] != card
+                or profile_search.DEVICE_STAGE not in row["stages_ms"]
+                or not row["device_step_event_ms"] > 0):
+            fail(f"phase 13 profile-search B={b}: {row}")
+        check_launched(f"profile-search B={b}", row["kernel_launches"],
+                       ("head_blockmax_i8",), total)
+        log(f"phase 13 profile-search B={b} ms a batch: "
+            + ", ".join(f"{k} {v}" for k, v in row["stages_ms"].items())
+            + f"; device step (CUDA events) {row['device_step_event_ms']}; "
+            "batch_stages "
+            + ", ".join(f"{k} {v}" for k, v in row["batch_stages_ms"].items()))
+
+
+def bench_phase(card, scratch, world1):
     """Phase 13: each mode of ``python -m osr_tpu_torch.bench`` on the card;
     returns each kernel's launches, summed over the modes' measured
-    passes."""
+    passes (and over sharded-scale's ranks)."""
     t0 = time.perf_counter()
     total = {}
     for args, kernels in BENCH_MODES:
@@ -3141,6 +3172,8 @@ def bench_phase(card, scratch):
             fail(f"phase 13 {mode}: QPS {qps}, {done}/{queries} non-empty")
         check_launched(mode, row["kernel_launches"], kernels, total)
     prose_modes(card, total, scratch)
+    sharded_modes(card, total, world1)
+    profiler_modes(card, total)
     log(f"phase 13 (measurement entry points) took "
         f"{time.perf_counter() - t0:.1f} s; launches {total}")
     return total
@@ -3421,7 +3454,7 @@ def main():
 
     bemb = synthetic_corpus_embeddings(bench_docs, dim=DENSE_DIM, seed=3)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as scratch:
-        sharded = sharded_phase(
+        sharded, world1 = sharded_phase(
             {"int8": index8, "int4": index4}, queries, bemb, Path(scratch)
         )
     del bemb, index8, index4
@@ -3429,7 +3462,7 @@ def main():
     log(f"sharded engines done at {time.perf_counter() - t_start:.1f} s")
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as scratch:
-        bench = bench_phase(card, Path(scratch))
+        bench = bench_phase(card, Path(scratch), world1)
     for r in rows:
         if r["name"] in surface:
             r["surface_launches"] = surface[r["name"]]

@@ -1,13 +1,17 @@
 """``python -m osr_tpu_torch.bench [mode] [options]``: the mode is one of
 headline (the default), scaling, hybrid, dense-scale, batch-curve,
-int4-quality, quality-at-scale, fusion-sweep and dense-encoder; the
-options are the mode's own (``--help`` after the mode lists them)."""
+int4-quality, quality-at-scale, fusion-sweep, dense-encoder,
+sharded-scale, sharded-overhead, profile-trace, profile-latency and
+profile-search; the options are the mode's own (``--help`` after the
+mode lists them)."""
 
 import sys
 
 MODES = (
     "headline", "scaling", "hybrid", "dense-scale", "batch-curve",
     "int4-quality", "quality-at-scale", "fusion-sweep", "dense-encoder",
+    "sharded-scale", "sharded-overhead", "profile-trace", "profile-latency",
+    "profile-search",
 )
 
 

@@ -41,27 +41,13 @@ from osr_tpu_torch.bench.common import (
     log,
     no_card,
     reset_all_launches,
+    workload,
 )
 from osr_tpu_torch.retrieval.engine import resolve_device
 
 METRIC = "sparse_qps_batch_curve"
 BATCHES = (8, 128, 512, 2048, 6656)
 PASS_QUERIES = 2_000  # a few batches a pass
-
-
-def workload(docs: int = NUM_DOCS, vocab: int = VOCAB,
-             num_queries: int = NUM_QUERIES):
-    """The script's corpus and queries: one seed-42 generator."""
-    from osr_tpu_torch.testing import SyntheticDataGenerator
-
-    gen = SyntheticDataGenerator(seed=42)
-    corpus = gen.zipf_corpus(
-        docs, vocab, avg_len=130, word_prefix="t", min_len=5
-    )
-    queries = gen.queries(
-        num_queries, vocab, avg_terms=11, word_prefix="t", min_terms=2
-    )
-    return corpus, queries
 
 
 def timed_count(batch: int, available: int) -> int:

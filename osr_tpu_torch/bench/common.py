@@ -1,16 +1,20 @@
 """What the measurement entry points share: ``bench.py``'s workload
-(``bench.py:30-50``), the H100's peak rates, the card's name and power
-limit, the head kernels' byte and operation count, the sparse engines'
-exactness rule against the plain head (the merge check), and the roots
-of the prose harvest. ``chip_smoke.py`` takes these from here, so the
-workload, the bound and the checks have one definition."""
+(``bench.py:30-50``) and the tools' seed-42 one, the H100's peak rates,
+the card's name and power limit, the head kernels' byte and operation
+count, the sparse engines' exactness rules (the merge check against the
+plain head, the sharded scripts' mismatch rule), a batch timed stage by
+stage, CUDA-event timing, the index state handed to spawned ranks, and
+the roots of the prose harvest. ``chip_smoke.py`` takes these from here,
+so the workload, the bound, the checks and the stages have one
+definition."""
 
 from __future__ import annotations
 
 import json
 import subprocess
 import sys
-from typing import Dict, Tuple
+import time
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +62,24 @@ def make_queries(num_queries: int = NUM_QUERIES, vocab: int = VOCAB):
     return SyntheticDataGenerator(seed=6).queries(
         num_queries, vocab, avg_terms=11, word_prefix="t", min_terms=2
     )
+
+
+def workload(docs: int = NUM_DOCS, vocab: int = VOCAB,
+             num_queries: int = NUM_QUERIES):
+    """The tools' corpus and queries (``tools/bench_batch_curve.py``, the
+    sharded pair, ``profile_trace.py``, ``profile_latency.py``): one
+    seed-42 generator, corpus first; the queries are not ``bench.py``'s
+    seed-6 set."""
+    from osr_tpu_torch.testing import SyntheticDataGenerator
+
+    gen = SyntheticDataGenerator(seed=42)
+    corpus = gen.zipf_corpus(
+        docs, vocab, avg_len=130, word_prefix="t", min_len=5
+    )
+    queries = gen.queries(
+        num_queries, vocab, avg_terms=11, word_prefix="t", min_terms=2
+    )
+    return corpus, queries
 
 
 def log(msg: str) -> None:
@@ -226,3 +248,141 @@ def merge_check(engine, plain_engine, queries) -> int:
             f"merge slack violated ({n} candidates, worst {gap.max()})"
         )
     return n
+
+
+def substantive_mismatches(
+    a: Mapping[str, Mapping[str, float]],
+    b: Mapping[str, Mapping[str, float]],
+    tol: float = 1e-4,
+) -> int:
+    """The queries of ``b`` whose results in ``a`` differ substantively
+    (``tools/bench_sharded_cpu.py:128-143``, ``bench_sharded_tpu.py:
+    122-139``): a document unique to one side outscores the other side's
+    k-th kept score by more than ``tol`` (relative, at least absolute), or
+    a shared document's scores differ by more than it. An equal-score tie
+    swap at the k-th place does not count."""
+    mismatches = 0
+    for qid in b:
+        x, y = a[qid], b[qid]
+        xmin = min(x.values(), default=0.0)
+        ymin = min(y.values(), default=0.0)
+        bad = any(
+            x[d] > ymin + tol * max(1.0, abs(ymin)) for d in set(x) - set(y)
+        ) or any(
+            y[d] > xmin + tol * max(1.0, abs(xmin)) for d in set(y) - set(x)
+        ) or any(
+            abs(x[d] - y[d]) > tol * max(1.0, abs(y[d]))
+            for d in set(x) & set(y)
+        )
+        mismatches += bool(bad)
+    return mismatches
+
+
+def differing_dicts(a, b) -> int:
+    """The queries of ``b`` whose result dicts in ``a`` differ at all (ids,
+    order aside, or scores)."""
+    if set(a) != set(b):
+        raise RuntimeError("the two results cover different queries")
+    return sum(a[q] != b[q] for q in b)
+
+
+def batch_stages(engine, texts, top_k) -> Dict[str, float]:
+    """Wall time (ms) of each stage of one batch of a ``SparseSearchEngine``
+    run one after another (inside search() the candidate head dots overlap
+    the device step, or wait for it where the candidate filter applies):
+    encode, tail_walk, device_step_and_copy, tau_filter (where it
+    applies), cand_head_dots, merge, result_dicts."""
+    from osr_tpu_torch.index import postings as P
+
+    d = engine._dev
+    ms = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        ms[name] = (now - t) * 1e3
+        t = now
+
+    enc = engine.encode_queries(texts)
+    lap("encode")
+    cand = engine._tail_candidates(enc, enc.head_ids.shape[0])
+    lap("tail_walk")
+    top, rows, _ = engine.device_step(
+        engine._upload(enc.head_ids), engine._upload(enc.head_weights), top_k
+    )
+    top, rows = top.cpu().numpy(), rows.cpu().numpy()
+    lap("device_step_and_copy")
+    slack = P.merge_tau_slack(
+        engine._slack_per_term, enc.head_flat_ids, enc.head_flat_counts,
+        enc.head_ptr,
+    )
+    nq = max(1, len(enc.head_ptr) - 1)
+    if (
+        engine.cand_filter_per_query
+        and cand.total >= engine.cand_filter_per_query * nq
+    ):
+        cand = P.filter_candidates_by_tau(
+            cand, top, rows, top_k, slack, d.num_rows
+        )
+        lap("tau_filter")
+    cand_head = engine._cand_head_host(cand, enc)
+    lap("cand_head_dots")
+    scores, ids = P.merge_host(
+        top, rows, cand, cand_head, d.num_rows, top_k, tau_slack=slack
+    )
+    lap("merge")
+    engine._result_dicts(scores, ids)
+    lap("result_dicts")
+    return ms
+
+
+def median_stages(engine, texts, top_k, runs=3) -> Dict[str, float]:
+    """:func:`batch_stages`, each stage's median over ``runs`` batches."""
+    out = [batch_stages(engine, texts, top_k) for _ in range(runs)]
+    return {k: float(np.median([r[k] for r in out])) for k in out[0]}
+
+
+def median_ms(fn: Callable[[], object], reps: int, warmup: int = 2) -> float:
+    """Median over ``reps`` single calls of ``fn`` on the current CUDA
+    stream, each timed with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+FOREIGN_MODULES = ("jax", "jaxlib", "osr_tpu", "transformers", "yaml")
+
+
+def foreign_modules() -> Tuple[str, ...]:
+    """The modules of this process that the port must not load: JAX,
+    ``osr_tpu``, ``transformers`` and PyYAML (the spawned ranks report
+    it)."""
+    return tuple(sorted(
+        m for m in sys.modules if m.split(".")[0] in FOREIGN_MODULES
+    ))
+
+
+def index_state(index) -> Dict[str, object]:
+    """The keyword arguments of ``convert.index_from_arrays`` for ``index``:
+    how a parent hands its host index to spawned ranks."""
+    lay = index.layout
+    return dict(
+        head=lay.head, head_scales=lay.head_scales, post_ptr=lay.post_ptr,
+        post_rows=lay.post_rows, post_weights=lay.post_weights,
+        valid=lay.valid, num_docs=lay.num_docs, vocab_size=lay.vocab_size,
+        head_terms=lay.head_terms, head_dtype=lay.head_dtype,
+        vocabulary=dict(index.vocabulary), doc_ids=list(index.doc_ids),
+        method=index.method, idf=index.idf, doc_lengths=index.doc_lengths,
+        avgdl=index.avgdl, k1=index.k1, b=index.b,
+    )

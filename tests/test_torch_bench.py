@@ -1,8 +1,9 @@
 """The port's measurement entry points (osr_tpu_torch/bench/) against the
 JAX system's scripts they port: bench.py, tools/bench_scaling.py,
 tools/bench_hybrid.py and tools/bench_dense_scale.py, all on the CPU at
-small sizes; the row keys of the five later modes too (their results
-against osr_tpu are in tests/test_torch_bench_tools.py).
+small sizes; the row keys of the later modes too (their results against
+osr_tpu are in tests/test_torch_bench_tools.py and
+tests/test_torch_bench_profilers.py).
 
 The scripts' output keys are read from their source with ``ast``; the
 headline's sparse results are held to osr_tpu's SparseSearchEngine on the
@@ -34,8 +35,13 @@ from osr_tpu_torch.bench import (
     headline,
     hybrid,
     int4_quality,
+    profile_latency,
+    profile_search,
+    profile_trace,
     quality_at_scale,
     scaling,
+    sharded_overhead,
+    sharded_scale,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -289,6 +295,12 @@ TOOL_ROWS = {
     "dense_encoder": ("tools/bench_dense_encoder.py", "out", lambda: _stdout_rows(
         dense_encoder.main, ["--docs", "300", "--vocab", "600", "--queries",
                              "16", "--dtype", "float32", "--cpu"])),
+    "sharded_scale": ("tools/bench_sharded_cpu.py", "row", lambda: _stdout_rows(
+        sharded_scale.main, ["--docs", "2000", "--queries", "32",
+                             "--devices", "2", "--cpu"])),
+    "sharded_overhead": ("tools/bench_sharded_tpu.py", "row", lambda: [
+        sharded_overhead.run(docs=SMALL_DOCS, vocab=12_000, num_queries=64,
+                             passes=2, device="cpu")[0]]),
 }
 EXTRA_KEYS = {
     "scaling": {"metric", "kernel_launches", "device_peak_above_index_mb"},
@@ -300,12 +312,19 @@ EXTRA_KEYS = {
     "fusion_sweep": {"kernel_launches"},
     "dense_encoder": {"kernel_launches", "dense_backends",
                       "kernel_route_equals_plain"},
+    "sharded_scale": {"kernel_launches", "kernel_launches_by_rank",
+                      "differing_dicts_vs_flat", "rank_peak_rss_mb",
+                      "rank_device_peak_mb", "device"},
+    "sharded_overhead": {"kernel_launches", "kernel_launches_by_engine",
+                         "differing_dicts_vs_flat"},
 }
 # The keys a script sets only from its reference leg, which runs the
-# reference project's code from outside the repository: not ported.
+# reference project's code from outside the repository: not ported; and
+# the sharded TPU script's interpret-mode flag: the port has no Pallas.
 ABSENT_KEYS = {
     "quality_at_scale": {"ndcg10_delta_osr_minus_ref",
                          "ndcg10_delta_f32head_minus_ref"},
+    "sharded_overhead": {"pallas_interpret"},
 }
 
 
@@ -316,7 +335,7 @@ def test_tool_rows_hold_the_jax_tools_keys(tool):
     script, name, make = TOOL_ROWS[tool]
     keys, later = _dict_keys(REPO / script, name)
     absent = ABSENT_KEYS.get(tool, set())
-    assert absent <= later
+    assert absent <= keys | later
     want = (keys | later) - absent | EXTRA_KEYS[tool]
     rows = make()
     assert rows
@@ -349,6 +368,10 @@ def test_tool_rows_hold_the_jax_tools_keys(tool):
         assert all(sweep_keys <= set(r) for r in rows[0]["sweep"])
     if tool == "dense_encoder":
         assert rows[0]["kernel_route_equals_plain"] is None
+    if tool.startswith("sharded"):
+        counts = ("mismatched_queries_vs_single_device"
+                  if tool == "sharded_scale" else "mismatched_queries_vs_flat")
+        assert rows[0][counts] == 0 == rows[0]["differing_dicts_vs_flat"]
 
 
 def test_scaling_saved_index_loads_back(tmp_path):
@@ -416,6 +439,8 @@ def test_hybrid_fusion_check_raises(bad):
     [], ["headline"], ["scaling", "--docs", "10"], ["hybrid"],
     ["dense-scale"], ["batch-curve"], ["int4-quality"],
     ["quality-at-scale"], ["fusion-sweep"], ["dense-encoder"],
+    ["sharded-scale"], ["sharded-overhead"], ["profile-trace"],
+    ["profile-latency"], ["profile-search"],
 ])
 def test_cli_without_a_card_prints_no_value(mode):
     """Without a CUDA device each mode prints its JSON line with no value
@@ -434,7 +459,12 @@ def test_cli_without_a_card_prints_no_value(mode):
               "int4-quality": int4_quality.METRIC,
               "quality-at-scale": quality_at_scale.METRIC,
               "fusion-sweep": fusion_sweep.METRIC,
-              "dense-encoder": dense_encoder.METRIC}.get(
+              "dense-encoder": dense_encoder.METRIC,
+              "sharded-scale": sharded_scale.METRIC,
+              "sharded-overhead": sharded_overhead.METRIC,
+              "profile-trace": profile_trace.METRIC,
+              "profile-latency": profile_latency.METRIC,
+              "profile-search": profile_search.METRIC}.get(
         mode[0] if mode else "headline", headline.METRIC)
     assert line["metric"] == metric
 

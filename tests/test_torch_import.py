@@ -258,6 +258,9 @@ import osr_tpu_torch.bench.dense_scale, osr_tpu_torch.bench.__main__
 import osr_tpu_torch.bench.batch_curve, osr_tpu_torch.bench.int4_quality
 import osr_tpu_torch.bench.quality_at_scale, osr_tpu_torch.bench.fusion_sweep
 import osr_tpu_torch.bench.dense_encoder
+import osr_tpu_torch.bench.sharded_scale, osr_tpu_torch.bench.sharded_overhead
+import osr_tpu_torch.bench.profile_trace, osr_tpu_torch.bench.profile_latency
+import osr_tpu_torch.bench.profile_search
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "transformers", "yaml")

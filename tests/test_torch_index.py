@@ -21,7 +21,7 @@ from osr_tpu_torch.convert import index_from_arrays
 from osr_tpu_torch.index import postings as tpost
 from osr_tpu_torch.index.builder import SparseIndexBuilder
 from osr_tpu_torch.index.layout import repack_int4, unpack_int4
-from osr_tpu_torch.index.tokenizer import Tokenizer, tokenize
+from osr_tpu_torch.index.tokenizer import Tokenizer, term_counts, tokenize
 from osr_tpu_torch.retrieval.encoding import QueryEncoder, encode_query_batch
 from osr_tpu_torch.testing import SyntheticDataGenerator
 
@@ -145,6 +145,18 @@ def test_tokenizer_and_encoding_match_osr_tpu(corpus):
         else:
             assert a == b, name
     assert f > 0
+
+
+@pytest.mark.parametrize("text", [
+    "a b a c a", "", "Ünïcode wörds, MIXED case! mixed", "x_y 12 x-y x_y",
+])
+def test_term_counts_match_osr_tpu(text):
+    """term_counts (tests/test_tokenizer.py:test_term_counts) equals
+    osr_tpu's Counter, key order included."""
+    got, want = term_counts(text), jtok.term_counts(text)
+    assert got == want and list(got.items()) == list(want.items())
+    if text == "a b a c a":
+        assert got == {"a": 3, "b": 1, "c": 1}
 
 
 @pytest.mark.parametrize("use_native", [True, False])
