@@ -69,7 +69,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    query); HFEncoder at Contriever's published width (BERT-base: 12
    layers, hidden 768, 12 heads, vocabulary 30,522, seeded weights, a
    WordPiece vocabulary of the corpus's most frequent terms) in f32 on
-   the card against f32 on the CPU over 256 docs (max abs 1e-5, TF32
+   the card against f32 on the CPU over 64 docs (max abs 1e-5, TF32
    off) and in bf16 against f32 (1e-2), its bf16 docs/s and tokens/s;
    then run_all_experiments on a config dict with three experiments on
    cuda: prose_87k.yaml's bm25 block (extractive reader, K2), its hybrid
@@ -146,9 +146,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    device and a host probe per pass and this card's line, with K2
    launched in its passes and K7 + K5 in its dense leg; hybrid --fusion
    rrf at full size (K2, K7, K5); scaling --head-dtype int4 (K3) at
-   200,000 docs; dense-scale at 200,000 x 768 (K7 + K5, K7 + K6); batch-curve
+   200,000 docs, its index built once by --save-index into the phase's
+   scratch directory and loaded by --load-index; dense-scale at 200,000 x 768 (K7 + K5, K7 + K6); batch-curve
    (B = 8 to 6,656, each batch's queries counted and K2 launched);
-   int4-quality at 250,000 docs (K2 on the int8 head, K3 on the int4
+   int4-quality at 50,000 docs (K2 on the int8 head, K3 on the int4
    head, each engine held to the plain head by the merge check on 256
    queries; the overlaps printed beside the committed TPU row);
    dense-encoder (K7 + K5 on the symmetric leg, K7 + K6 on the int4 leg,
@@ -160,7 +161,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel (K2, or K1 below the block-prune floor), K7 and K5, the sweep
    has the script's 13 points in its order, and bm25_custom's IR metrics
    (and the sweep's sparse_only row) equal a run on the plain head; then
-   sharded-scale at 50,000 docs (8 gloo ranks on this card, mesh (2,
+   sharded-scale at 25,000 docs (8 gloo ranks on this card, mesh (2,
    4): 0 mismatched queries against the flat engine, 0
    differing dicts, K2 on every rank), sharded-overhead (a world of one
    under NCCL against the flat engine, 0 and 0, K2 in both engines; again
@@ -169,7 +170,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    trace whose K2 events are as many as K2's launches; the top ten device
    operations printed), profile-latency (B=1, K2 on every iteration; the
    stage p50s beside search()'s) and profile-search at B = 8, 128 and
-   1,024 (K2). A mode that exits non-zero, or outlives 300 s (it is
+   1,024 (K2); then the stage and device-step profilers: profile-stages-1m
+   over the saved int4 index (K3, candidates counted), profile-host-scale
+   over it (host only, on the host runtime), profile-hybrid (K2, K7, K5;
+   its stages sum to no more than its wall, both device steps timed with
+   CUDA events), and at B = 2,048 profile-device (K2; its fused step equal
+   to the engine's), profile-fused (K2; stage D equal to the engine's
+   step bit for bit, stage E up to tied scores), profile-narrow (K2 and
+   K4-i8; equal outputs across m), profile-blocksel and profile-topk2
+   (selection only; their exactness flags true) and profile-topk-fix (K1;
+   the chunked scan equal to the one-program top-k), each dropped row
+   null and named. A mode that exits non-zero, or outlives 300 s (it is
    killed), fails the run.
 
 Prints the card's name and power limit, a JSON line of per-kernel numbers
@@ -255,10 +266,12 @@ M1_QUERIES = 2_048  # one batch of B = 2,048
 M1_CHUNK = 500_000  # score_chunk_rows: 2 chunks of 500,096 rows
 # The walker check past 2^24 rows: the tail postings of a 67,108,864-row
 # index (row chunks lift osr_tpu's 2^24 cap), 50,000 tail terms with
-# Zipf-like document frequencies, about 10M postings, 1,024 queries.
+# Zipf-like document frequencies, about 5M postings (cut from 10M, whose
+# generation took 19.0 s on an H100 machine's host, when phase 13 grew by
+# nine modes), 1,024 queries.
 WALK_ROWS = 1 << 26
 WALK_TERMS = 50_000
-WALK_POSTINGS = 10_000_000
+WALK_POSTINGS = 5_000_000
 WALK_QUERIES = 1_024
 DENSE_KERNELS = {
     "int8_similarity": "osr_tpu/ops/pallas/matmul.py:24",
@@ -1492,7 +1505,10 @@ PIPELINE_DATASET = "fiqa_scale"
 CONTRIEVER = dict(vocab_size=30_522, hidden_size=768, num_hidden_layers=12,
                   num_attention_heads=12, intermediate_size=3_072,
                   max_position_embeddings=512, type_vocab_size=2)
-ENCODER_CHECK_DOCS = 256
+# Docs the f32 encoder on the card is held to the CPU over: 64, cut from
+# 256 when phase 13 grew by nine modes (the CPU forward of 256 took 39.4 s
+# of the pipeline phase on an H100 machine's host).
+ENCODER_CHECK_DOCS = 64
 F32_CARD_ATOL = 1e-5  # f32 on the card (TF32 off) against f32 on the CPU
 BF16_ATOL = 1e-2  # tests/test_torch_hf_encoder.py's bf16 tolerance
 THROUGHPUT_DOCS = 4_096
@@ -1532,7 +1548,8 @@ def contriever_encoder(tokenizer, dtype, device):
 
 def check_encoder(texts):
     """The Contriever-width encoder: f32 on the card against f32 on the
-    CPU, bf16 on the card against f32 on the card, over 256 docs; then its
+    CPU, bf16 on the card against f32 on the card, over
+    ENCODER_CHECK_DOCS docs; then its
     bf16 throughput on the card. Returns the bf16 encoder."""
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -2784,14 +2801,23 @@ def sharded_phase(indexes, queries, emb, scratch):
 
 # scaling runs at 200,000 docs, cut from 1M because its 1M index takes
 # about 2 minutes to build on the host (phase 9 builds one already); it
-# takes the int4 head (K3), which no other mode reaches. dense-scale runs
+# takes the int4 head (K3), which no other mode reaches. Its index is built
+# once, by scaling --save-index into the phase's scratch directory, and the
+# measured scaling run, profile-stages-1m and profile-host-scale load it:
+# the last two take a dump by design and read this 200,000-doc int4 one,
+# not the 1M int8 dump of their scripts' usage. dense-scale runs
 # at 200,000 x 768, cut from its 1M default when the sharded and profiler
 # modes took the script to 989 s on an H100 (over 900 s of its 1,200 s
 # limit): phase 10 drives the same engines at 1M x 768 already (the
-# default ran 56-59 s, the cut about 20 s). batch-curve, int4-quality and dense-encoder run at their
-# defaults; quality-at-scale and fusion-sweep follow (prose_modes), then
-# the sharded and profiler modes (sharded_modes, profiler_modes).
+# default ran 56-59 s, the cut about 20 s). batch-curve and dense-encoder
+# run at their defaults; quality-at-scale and fusion-sweep follow
+# (prose_modes), then the sharded and profiler modes (sharded_modes,
+# profiler_modes) and the stage and device-step profilers (stage_modes).
 BENCH_SCALE_DOCS = 200_000
+# int4-quality runs at 50,000 docs, cut from the script's 250,000 (72.5 s
+# on an H100; 100,000 docs took 36.2-39.3 s) when phase 13 grew by nine
+# modes; at its default it equalled the committed TPU row.
+BENCH_QUALITY_DOCS = 50_000
 BENCH_MODES = (
     # (the mode's arguments, the kernels each of its rows must launch)
     ((), ("head_blockmax_i8",)),
@@ -2801,7 +2827,7 @@ BENCH_MODES = (
      ("head_blockmax_i4",)),
     (("dense-scale", "--docs", str(BENCH_SCALE_DOCS)), None),
     (("batch-curve",), ("head_blockmax_i8",)),
-    (("int4-quality",), None),
+    (("int4-quality", "--docs", str(BENCH_QUALITY_DOCS)), None),
     (("dense-encoder",), None),
 )
 BENCH_DENSE_KERNELS = {
@@ -2809,6 +2835,25 @@ BENCH_DENSE_KERNELS = {
     "int4": ("quantize_symmetric", "int4_similarity"),
 }
 BENCH_TIMEOUT_S = 300  # one mode's process; it is killed after
+# The device-stage modes run at B = 2,048 (profile-trace's batch), cut
+# from their scripts' 6,656: profile-device, profile-fused, profile-narrow,
+# profile-blocksel, profile-topk2 and profile-topk-fix (their (B, R)
+# matrices shrink from 1.53 GB to 0.47 GB); each ran at its default by
+# hand on an H100 (PERF.md section 5). profile-hybrid runs at its
+# defaults (B = 512).
+STAGE_BATCH = 2_048
+DEVICE_STAGE_MODES = (
+    # (the mode, the kernels its row must launch, its row's checks)
+    ("profile-device", ("head_blockmax_i8",), ("fused_equals_engine_step",)),
+    ("profile-fused", ("head_blockmax_i8",),
+     ("stage_d_equals_device_step", "stage_e_equals_device_step")),
+    ("profile-narrow", ("head_blockmax_i8", "head_blocktopm_i8"),
+     ("outputs_equal_across_m",)),
+    ("profile-blocksel", (), ("scores_equal", "rows_equal")),
+    ("profile-topk2", (), ("int_trick_exact",)),
+    ("profile-topk-fix", ("head_scores_i8",),
+     ("scan_equals_baseline", "scan_equals_baseline_scores")),
+)
 # The committed TPU rows of bench_results/int4_quality.jsonl (overlap@10,
 # overlap@50): a quality artifact, printed beside the card's for the
 # reader and no gate (the TPU's f32 head was XLA's default-precision
@@ -2818,12 +2863,12 @@ QAS_ARGS = ("quality-at-scale", "--query-mode", "noisy", "--dense-hashing",
             "--f32-control")
 
 
-def bench_mode(args, refused=False):
+def bench_mode(args, refused=False, rows_expected=True):
     """``python -m osr_tpu_torch.bench *args`` in its own process, from this
     checkout; returns the JSON rows it printed, failing on a non-zero exit
     or a process that outlives BENCH_TIMEOUT_S (it is killed). With
     ``refused`` the mode must refuse: exit 1 and one row with no value and
-    the reason."""
+    the reason. Without ``rows_expected`` it may print none."""
     label = " ".join(args) or "headline"
     t0 = time.perf_counter()
     try:
@@ -2839,7 +2884,7 @@ def bench_mode(args, refused=False):
              f"{res.stderr[-4000:]}")
     rows = [json.loads(ln) for ln in res.stdout.splitlines()
             if ln.startswith("{")]
-    if not rows:
+    if not rows and rows_expected:
         fail(f"phase 13 {label}: printed no row")
     if refused and (len(rows) != 1 or rows[0]["value"] is not None
                     or "need >=" not in rows[0]["error"]):
@@ -2925,8 +2970,9 @@ def check_int4_quality(rows, card, total):
         check_launched(f"int4-quality {dtype}", r["kernel_launches"],
                        (int4_quality.KERNEL[dtype],), total)
         tpu = TPU_HEAD_OVERLAPS[dtype]
-        log(f"phase 13 int4-quality {dtype} head against f32: overlap@10 "
-            f"{r['overlap_at_10']} (the TPU row {tpu[0]}), overlap@50 "
+        log(f"phase 13 int4-quality {dtype} head against f32 at "
+            f"{r['num_docs']} docs: overlap@10 {r['overlap_at_10']} (the TPU "
+            f"row at 250,000 docs {tpu[0]}), overlap@50 "
             f"{r['overlap_at_50']} ({tpu[1]}); score MAE "
             f"{r['score_mae_on_f32_top50']}, relative "
             f"{r['score_mae_rel_top1']}; {r['merge_checked_candidates']} "
@@ -3031,12 +3077,13 @@ def prose_modes(card, total, scratch):
     log(f"phase 13 prose modes took {time.perf_counter() - t0:.1f} s")
 
 
-# sharded-scale runs at 50,000 docs, cut from its 200,000 default for the
-# same limit (the default took 55.1-59.0 s on an H100); every
-# other option is the default: 8 ranks, mesh (2, 4), and each rank's step
-# still takes K2 (the block-pruned selection follows the whole index's
-# 391 blocks).
-BENCH_SHARDED_DOCS = 50_000
+# sharded-scale runs at 25,000 docs, cut from its 200,000 default for the
+# same limit (the default took 55.1-59.0 s on an H100, 50,000 docs 26.0-33.3
+# s before phase 13 grew by nine modes); every other option is the
+# default: 8 ranks, mesh (2, 4), and each rank's step still takes K2 (the
+# block-pruned selection follows the whole index's 196 blocks, more than
+# 2 x top_k 50).
+BENCH_SHARDED_DOCS = 25_000
 
 
 def sharded_modes(card, total, world1):
@@ -3133,13 +3180,100 @@ def profiler_modes(card, total):
             + ", ".join(f"{k} {v}" for k, v in row["batch_stages_ms"].items()))
 
 
+def keys_and_card(label, row, keys, card):
+    """A mode's row holds every key of its module's KEYS and this card."""
+    missing = set(keys) - set(row)
+    if missing or row["device"] != card:
+        fail(f"phase 13 {label}: keys missing {sorted(missing)}, device "
+             f"{row['device']!r}")
+
+
+def stage_modes(card, total, dump):
+    """profile-stages-1m and profile-host-scale over the saved 200,000-doc
+    int4 index, then profile-hybrid at its defaults and the device-stage
+    modes at STAGE_BATCH, each row checked and its launches counted."""
+    from osr_tpu_torch.bench import (
+        profile_blocksel,
+        profile_device,
+        profile_fused,
+        profile_host_scale,
+        profile_hybrid,
+        profile_narrow,
+        profile_stages_1m,
+        profile_topk2,
+        profile_topk_fix,
+    )
+
+    row = bench_mode(("profile-stages-1m", "--load-index", str(dump)))[-1]
+    keys_and_card("profile-stages-1m", row, profile_stages_1m.KEYS, card)
+    if (not row["cand_total"] > 0 or row["num_docs"] != BENCH_SCALE_DOCS
+            or row["head_dtype"] != "int4" or not row["qps"] > 0):
+        fail(f"phase 13 profile-stages-1m: {row}")
+    check_launched("profile-stages-1m", row["kernel_launches"],
+                   ("head_blockmax_i4",), total)
+    log(f"phase 13 profile-stages-1m ({row['num_docs']} docs, int4, "
+        f"B={row['batch']}) ms: " + ", ".join(
+            f"{k} {row[k]}" for k in profile_stages_1m.KEYS[6:16]))
+
+    row = bench_mode(("profile-host-scale", "--load-index", str(dump)))[-1]
+    keys_and_card("profile-host-scale", row, profile_host_scale.KEYS, card)
+    if (row["host_runtime"] != "native" or row["kernel_launches"]
+            or row["num_docs"] != BENCH_SCALE_DOCS
+            or not row["candidates_per_q_mean"] > 0):
+        fail(f"phase 13 profile-host-scale: {row}")
+    log("phase 13 profile-host-scale: " + ", ".join(
+        f"{k} {row[k]}" for k in profile_host_scale.KEYS[4:22]))
+
+    row = bench_mode(("profile-hybrid",))[-1]
+    keys_and_card("profile-hybrid", row, profile_hybrid.KEYS, card)
+    stages = row["ms_per_batch"]
+    events = row["device_step_event_ms"]
+    if (list(stages) != list(profile_hybrid.HOST_STAGES
+                             + profile_hybrid.DEVICE_WALLS)
+            or sum(stages[k] for k in profile_hybrid.HOST_STAGES)
+            > row["serial_wall_ms"] + 1e-3
+            or not (events["sparse_dev"] > 0 and events["dense_dev"] > 0)):
+        fail(f"phase 13 profile-hybrid: {row}")
+    check_launched("profile-hybrid", row["kernel_launches"],
+                   ("head_blockmax_i8",) + BENCH_DENSE_KERNELS["symmetric"],
+                   total)
+    log(f"phase 13 profile-hybrid ms a batch: {json.dumps(stages)}; wall "
+        f"{row['serial_wall_ms']}; device steps (CUDA events) {events}")
+
+    modules = {"profile-device": profile_device,
+               "profile-fused": profile_fused,
+               "profile-narrow": profile_narrow,
+               "profile-blocksel": profile_blocksel,
+               "profile-topk2": profile_topk2,
+               "profile-topk-fix": profile_topk_fix}
+    for mode, kernels, checks in DEVICE_STAGE_MODES:
+        module = modules[mode]
+        row = bench_mode((mode, "--batch", str(STAGE_BATCH)))[-1]
+        keys_and_card(mode, row, module.KEYS, card)
+        if row["batch"] != STAGE_BATCH or not all(row[c] is True
+                                                  for c in checks):
+            fail(f"phase 13 {mode}: {row}")
+        for key in getattr(module, "DROPPED", {}):
+            if row[key] is not None or key not in row["dropped"]:
+                fail(f"phase 13 {mode}: dropped row {key} is {row[key]}")
+        check_launched(mode, row["kernel_launches"], kernels, total)
+        log(f"phase 13 {mode} B={STAGE_BATCH} ms: " + ", ".join(
+            f"{k} {v}" for k, v in row.items()
+            if k.endswith("_ms") and v is not None))
+
+
 def bench_phase(card, scratch, world1):
     """Phase 13: each mode of ``python -m osr_tpu_torch.bench`` on the card;
     returns each kernel's launches, summed over the modes' measured
     passes (and over sharded-scale's ranks)."""
     t0 = time.perf_counter()
     total = {}
+    dump = scratch / "scaling_int4"
+    bench_mode(("scaling", "--docs", str(BENCH_SCALE_DOCS), "--head-dtype",
+                "int4", "--save-index", str(dump)), rows_expected=False)
     for args, kernels in BENCH_MODES:
+        if args and args[0] == "scaling":
+            args = (*args, "--load-index", str(dump))
         rows = bench_mode(args)
         if not args:
             check_headline(rows[-1], card, total)
@@ -3174,6 +3308,7 @@ def bench_phase(card, scratch, world1):
     prose_modes(card, total, scratch)
     sharded_modes(card, total, world1)
     profiler_modes(card, total)
+    stage_modes(card, total, dump)
     log(f"phase 13 (measurement entry points) took "
         f"{time.perf_counter() - t0:.1f} s; launches {total}")
     return total

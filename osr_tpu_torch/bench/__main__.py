@@ -1,9 +1,11 @@
 """``python -m osr_tpu_torch.bench [mode] [options]``: the mode is one of
 headline (the default), scaling, hybrid, dense-scale, batch-curve,
 int4-quality, quality-at-scale, fusion-sweep, dense-encoder,
-sharded-scale, sharded-overhead, profile-trace, profile-latency and
-profile-search; the options are the mode's own (``--help`` after the
-mode lists them)."""
+sharded-scale, sharded-overhead, profile-trace, profile-latency,
+profile-search, profile-stages-1m, profile-host-scale, profile-hybrid,
+profile-device, profile-fused, profile-narrow, profile-blocksel,
+profile-topk2 and profile-topk-fix; the options are the mode's own
+(``--help`` after the mode lists them)."""
 
 import sys
 
@@ -11,7 +13,9 @@ MODES = (
     "headline", "scaling", "hybrid", "dense-scale", "batch-curve",
     "int4-quality", "quality-at-scale", "fusion-sweep", "dense-encoder",
     "sharded-scale", "sharded-overhead", "profile-trace", "profile-latency",
-    "profile-search",
+    "profile-search", "profile-stages-1m", "profile-host-scale",
+    "profile-hybrid", "profile-device", "profile-fused", "profile-narrow",
+    "profile-blocksel", "profile-topk2", "profile-topk-fix",
 )
 
 

@@ -3,8 +3,9 @@
 the card's name and power limit, the head kernels' byte and operation
 count, the sparse engines' exactness rules (the merge check against the
 plain head, the sharded scripts' mismatch rule), a batch timed stage by
-stage, CUDA-event timing, the index state handed to spawned ranks, and
-the roots of the prose harvest. ``chip_smoke.py`` takes these from here,
+stage, CUDA-event timing and the device-stage scripts' enqueued timing,
+pinned fetches, a top-k comparison up to tied scores, the index state
+handed to spawned ranks, and the roots of the prose harvest. ``chip_smoke.py`` takes these from here,
 so the workload, the bound, the checks and the stages have one
 definition."""
 
@@ -14,7 +15,7 @@ import json
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -359,6 +360,61 @@ def median_ms(fn: Callable[[], object], reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def enqueued_ms(fn: Callable[[], object], dev: torch.device,
+                reps: int = 4) -> float:
+    """The device-stage scripts' fetch-forced timing: ``fn`` once to warm,
+    then ``reps`` calls enqueued back to back and one synchronize after
+    the last; milliseconds a call on the host clock. On the CPU each call
+    runs as it is made."""
+    fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def fetch(tensors) -> list:
+    """Device tensors copied into pinned host buffers, after a
+    synchronize, as NumPy arrays (the CPU's tensors as they are)."""
+    out = []
+    for t in tensors:
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t)
+            t = host
+        out.append(t.numpy())
+    return out
+
+
+def rounded(x: Optional[float], digits: int = 4) -> Optional[float]:
+    return None if x is None else round(float(x), digits)
+
+
+def equal_up_to_ties(s_a: np.ndarray, r_a: np.ndarray, s_b: np.ndarray,
+                     r_b: np.ndarray) -> bool:
+    """Two exact top-k lists, (B, k) scores and rows, hold the same scores
+    in the same places and the same rows but where a score is tied: rows
+    among equal scores may come in another order, and at a tie on the
+    k-th score another of the tied rows may be kept."""
+    if not np.array_equal(s_a, s_b):
+        return False
+    for q in np.flatnonzero((r_a != r_b).any(axis=1)):
+        kth = s_a[q, -1]
+        for v in np.unique(s_a[q]):
+            at = s_a[q] == v
+            if v != kth and set(r_a[q, at]) != set(r_b[q, at]):
+                return False
+    return True
 
 
 FOREIGN_MODULES = ("jax", "jaxlib", "osr_tpu", "transformers", "yaml")

@@ -14,7 +14,7 @@ held to an engine on the same build whose head step is the plain version
 (``common.merge_check``, 256 queries). Prints one JSON row per quantized
 head.
 
-Usage: python -m osr_tpu_torch.bench int4-quality
+Usage: python -m osr_tpu_torch.bench int4-quality [--docs 250000]
 """
 
 from __future__ import annotations
@@ -167,8 +167,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="python -m osr_tpu_torch.bench int4-quality",
         description=__doc__.splitlines()[0],
     )
-    ap.parse_args(argv)
+    ap.add_argument("--docs", type=int, default=NUM_DOCS,
+                    help="corpus size (default the script's 250,000)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         return no_card(METRIC)
-    run()
+    run(num_docs=args.docs)
     return 0

@@ -53,12 +53,15 @@ class SyntheticDataGenerator:
         )
         total = int(lengths.sum())
         token_ids = np.searchsorted(cum, rng.rand(total))
-        offsets = np.concatenate([[0], np.cumsum(lengths)])
+        offsets = np.concatenate([[0], np.cumsum(lengths)]).tolist()
+        # Each word is formatted once, not once per token (searchsorted can
+        # return vocab_size where the cumulative sum rounds below 1).
+        words = [f"{word_prefix}{i}" for i in range(vocab_size + 1)]
+        tokens = list(map(words.__getitem__, token_ids.tolist()))
         corpus = {}
         for d in range(num_docs):
-            ids = token_ids[offsets[d] : offsets[d + 1]]
             corpus[f"doc{d}"] = {
-                "text": " ".join(f"{word_prefix}{i}" for i in ids),
+                "text": " ".join(tokens[offsets[d] : offsets[d + 1]]),
                 "title": f"Document {d}",
             }
         return corpus

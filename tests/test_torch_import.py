@@ -261,6 +261,12 @@ import osr_tpu_torch.bench.dense_encoder
 import osr_tpu_torch.bench.sharded_scale, osr_tpu_torch.bench.sharded_overhead
 import osr_tpu_torch.bench.profile_trace, osr_tpu_torch.bench.profile_latency
 import osr_tpu_torch.bench.profile_search
+import osr_tpu_torch.bench.profile_stages_1m
+import osr_tpu_torch.bench.profile_host_scale
+import osr_tpu_torch.bench.profile_hybrid, osr_tpu_torch.bench.profile_device
+import osr_tpu_torch.bench.profile_fused, osr_tpu_torch.bench.profile_narrow
+import osr_tpu_torch.bench.profile_blocksel, osr_tpu_torch.bench.profile_topk2
+import osr_tpu_torch.bench.profile_topk_fix
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "transformers", "yaml")
