@@ -71,14 +71,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    WordPiece vocabulary of the corpus's most frequent terms) in f32 on
    the card against f32 on the CPU over 64 docs (max abs 1e-5, TF32
    off) and in bf16 against f32 (1e-2), its bf16 docs/s and tokens/s;
-   then run_all_experiments on a config dict with three experiments on
-   cuda: prose_87k.yaml's bm25 block (extractive reader, K2), its hybrid
-   RRF-IDF block (generative reader, K2 + K7 + K5) and contriever over
-   the bf16 HFEncoder (K7 + K5), each with every query processed, its
-   kernels launched, its preds equal to a direct retriever.search of the
-   same block and its quality equal to evaluate_retrieval over that
-   search; prints build, warmup and retrieve seconds, retrieval and
-   pipeline QPS, nDCG@10 and the stage split of each experiment;
+   then run_all_experiments on a config dict with the contriever
+   experiment over the bf16 HFEncoder (K7 + K5) on cuda (prose_87k.yaml's
+   bm25 and hybrid blocks run through it in phase 13's pipeline-87k):
+   every query processed, its kernels launched, its preds equal to a
+   direct retriever.search of the same block (over the experiment's
+   corpus and query embeddings) and its quality equal to
+   evaluate_retrieval over that search; prints build, warmup and
+   retrieve seconds, retrieval and pipeline QPS, nDCG@10 and the stage
+   split;
 8. the benchmark suites on the same scratch data: (a) run_from_config on
    osr_tpu/configs/benchmarks.yaml with device="cuda" (the bm25, topk,
    quantization and storage suites) must pass every row, launch K1, K5,
@@ -151,16 +152,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (B = 8 to 6,656, each batch's queries counted and K2 launched);
    int4-quality at 50,000 docs (K2 on the int8 head, K3 on the int4
    head, each engine held to the plain head by the merge check on 256
-   queries; the overlaps printed beside the committed TPU row);
-   dense-encoder (K7 + K5 on the symmetric leg, K7 + K6 on the int4 leg,
-   each equal to backend='torch' bit for bit); then the prose harvest
-   of this interpreter's library trees, counted root by root: at 20,000
-   chunks or more quality-at-scale (noisy, dense hashing, f32 control)
-   and fusion-sweep at their defaults, below it both must refuse and
+   queries; the overlaps printed beside the committed TPU row); storage
+   at its defaults (host only: every synthetic row passed, the unique-text
+   rows measured or named in dropped, the anchor's store rates positive,
+   no kernel); evidence --only probe,encoder (the probe's row this card,
+   the encoder step dense-encoder at its defaults: K7 + K5 on the
+   symmetric leg, K7 + K6 on the int4 leg, each equal to backend='torch'
+   bit for bit; both logs written under --out); then the prose harvest
+   of this interpreter's library trees: at 20,000 chunks or more
+   quality-at-scale (noisy, dense hashing, f32 control), fusion-sweep and
+   pipeline-87k at their defaults, below it the three must refuse and
    their functions run on the chunks there are; each launches a head
    kernel (K2, or K1 below the block-prune floor), K7 and K5, the sweep
-   has the script's 13 points in its order, and bm25_custom's IR metrics
-   (and the sweep's sparse_only row) equal a run on the plain head; then
+   has the script's 13 points in its order, bm25_custom's IR metrics
+   (and the sweep's sparse_only row) equal a run on the plain head, and
+   pipeline-87k's two experiments (prose_87k.yaml's bm25 and hybrid
+   RRF-IDF blocks) are ok, with preds and quality equal to a direct
+   search of each block over the same dataset; then
    sharded-scale at 25,000 docs (8 gloo ranks on this card, mesh (2,
    4): 0 mismatched queries against the flat engine, 0
    differing dicts, K2 on every rank), sharded-overhead (a world of one
@@ -169,8 +177,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    beside phase 12 (a)'s step ratio, profile-trace (a torch.profiler
    trace whose K2 events are as many as K2's launches; the top ten device
    operations printed), profile-latency (B=1, K2 on every iteration; the
-   stage p50s beside search()'s) and profile-search at B = 8, 128 and
-   1,024 (K2); then the stage and device-step profilers: profile-stages-1m
+   stage p50s beside search()'s) and profile-search at B = 1,024 (K2);
+   then the stage and device-step profilers: profile-stages-1m
    over the saved int4 index (K3, candidates counted), profile-host-scale
    over it (host only, on the host runtime), profile-hybrid (K2, K7, K5;
    its stages sum to no more than its wall, both device steps timed with
@@ -1513,8 +1521,6 @@ F32_CARD_ATOL = 1e-5  # f32 on the card (TF32 off) against f32 on the CPU
 BF16_ATOL = 1e-2  # tests/test_torch_hf_encoder.py's bf16 tolerance
 THROUGHPUT_DOCS = 4_096
 PIPELINE_KERNELS = {
-    "fiqa_bm25": ("head_blockmax_i8",),
-    "fiqa_hybrid_rrf_idf": SURFACE_KERNELS,
     "fiqa_contriever": ("quantize_symmetric", "int8_similarity"),
 }
 
@@ -1628,14 +1634,80 @@ def check_dataset(ds, texts, made):
     return corpus, queries, qrels
 
 
-def experiment_pipeline(corpus, scratch):
-    """Phase 7: the experiment pipeline at FiQA scale through
-    run_all_experiments on a config dict. Returns the pipeline's launches
-    of K2, K7 and K5 (summed over its experiments)."""
-    from osr_tpu_torch import RetrieverRegistry, run_all_experiments
+class RecordedEncoder:
+    """An encoder whose results are kept (copies) as the experiment asks
+    for them, so that the direct check reads the same embeddings back
+    (``replay``, ``replay_one``; a text not recorded is encoded) instead
+    of a second BERT pass over the corpus and the queries; the
+    experiment's own calls are not served from the record."""
+
+    def __init__(self, enc):
+        self.enc, self.corpus, self.queries = enc, {}, {}
+
+    def encode(self, texts):
+        emb = np.asarray(self.enc.encode(texts))
+        self.corpus[tuple(texts)] = emb.copy()
+        return emb
+
+    def encode_one(self, text):
+        emb = np.asarray(self.enc.encode_one(text))
+        self.queries[text] = emb.copy()
+        return emb
+
+    def replay(self, texts):
+        emb = self.corpus.get(tuple(texts))
+        return self.encode(texts) if emb is None else emb.copy()
+
+    def replay_one(self, text):
+        emb = self.queries.get(text)
+        return self.encode_one(text) if emb is None else emb.copy()
+
+
+def check_against_direct(name, block, s, docs, queries, qrels, results,
+                         made):
+    """An experiment's summary ``s`` and its preds file under ``results``
+    against a direct retriever.search of the same block over the same
+    dataset: every query processed, the preds' retriever scores the
+    direct search's first MAX_CONTEXTS, the quality evaluate_retrieval
+    over the direct search."""
+    from osr_tpu_torch import RetrieverRegistry
     from osr_tpu_torch.metrics.ir import evaluate_retrieval
     from osr_tpu_torch.pipeline import experiment as pipe
     from osr_tpu_torch.storage.loaders import extract_query_text
+
+    if s.get("status") != "ok":
+        fail(f"experiment {name}: {s}")
+    if s["queries_processed"] != made or s["queries_failed"] != 0:
+        fail(f"experiment {name} processed {s['queries_processed']} "
+             f"queries, {s['queries_failed']} failed")
+    query_texts = {q: extract_query_text(r) for q, r in queries.items()}
+    direct = RetrieverRegistry.create(block)
+    direct.build_index_from_corpus(docs)
+    want = direct.search(query_texts, top_k=s["top_k"])
+    check_results(want, query_texts, s["top_k"])
+    preds = json.loads((results / f"{name}_preds.json").read_text())
+    if [p["qid"] for p in preds] != list(query_texts) or any(
+        list(p["retriever_scores"].items())
+        != list(want[p["qid"]].items())[: pipe.MAX_CONTEXTS]
+        for p in preds
+    ):
+        fail(f"experiment {name}: preds differ from a direct search")
+    k_values = tuple(sorted({10, 100, s["top_k"]}))
+    if s["quality"] != evaluate_retrieval(want, qrels, k_values=k_values):
+        fail(f"experiment {name}: quality differs from evaluate_retrieval "
+             "over the direct search")
+    del direct
+    torch.cuda.empty_cache()
+
+
+def experiment_pipeline(corpus, scratch):
+    """Phase 7: the experiment pipeline at FiQA scale through
+    run_all_experiments on a config dict, with the Contriever-width
+    HFEncoder (prose_87k.yaml's bm25 and hybrid blocks run through it in
+    phase 13's pipeline-87k). Returns the pipeline's launches of K2, K7 and
+    K5."""
+    from osr_tpu_torch import run_all_experiments
+    from osr_tpu_torch.bench.pipeline_87k import counted_experiments
     from osr_tpu_torch.testing import build_dataset
 
     texts = [d["text"] for d in corpus.values()]
@@ -1650,20 +1722,19 @@ def experiment_pipeline(corpus, scratch):
         f"qrels written as BEIR files and read back in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    enc = check_encoder(texts)
+    enc = RecordedEncoder(check_encoder(texts))
+
+    def contriever(embed, embed_one):
+        return {"type": "contriever", "params": {
+            "top_k": SURFACE_TOP_K, "embedding_fn": embed,
+            "query_embedding_fn": embed_one, "device": "cuda"}}
+
     blocks = {
-        "fiqa_bm25": (BM25_CONFIG,
-                      {"type": "extractive",
-                       "params": {"max_answer_length": 150}}),
-        "fiqa_hybrid_rrf_idf": (HYBRID_CONFIG,
-                                {"type": "generative",
-                                 "params": {"max_context_length": 500}}),
         "fiqa_contriever": (
-            {"type": "contriever", "params": {
-                "top_k": SURFACE_TOP_K, "embedding_fn": enc.encode,
-                "query_embedding_fn": enc.encode_one, "device": "cuda"}},
+            contriever(enc.encode, enc.encode_one),
             {"type": "extractive", "params": {"max_answer_length": 150}}),
     }
+    direct = {"fiqa_contriever": contriever(enc.replay, enc.replay_one)}
     cfg = {
         "datasets_root": str(root),
         "output_dir": str(scratch / "results"),
@@ -1674,58 +1745,24 @@ def experiment_pipeline(corpus, scratch):
         ],
     }
 
-    launches = {}
-    inner = pipe.run_rag_experiment
-
-    def counted(exp_cfg, global_cfg, out_dir):
-        reset_all_launches()
-        try:
-            return inner(exp_cfg, global_cfg, out_dir)
-        finally:
-            torch.cuda.synchronize()
-            launches[exp_cfg["name"]] = all_launches()
-
-    pipe.run_rag_experiment = counted
     t0 = time.perf_counter()
-    try:
+    with counted_experiments(torch.device("cuda"), {}) as launches:
         overall = run_all_experiments(cfg)
-    finally:
-        pipe.run_rag_experiment = inner
     log(f"run_all_experiments: {len(overall)} experiments in "
         f"{time.perf_counter() - t0:.1f} s")
     json.loads((scratch / "results" / "overall_results.json").read_text())
 
-    query_texts = {q: extract_query_text(r) for q, r in queries.items()}
     totals = {n: 0 for n in SURFACE_KERNELS}
-    for name, (block, _) in blocks.items():
+    for name in blocks:
         s = overall[name]
-        if s.get("status") != "ok":
-            fail(f"experiment {name}: {s}")
-        if s["queries_processed"] != made or s["queries_failed"] != 0:
-            fail(f"experiment {name} processed {s['queries_processed']} "
-                 f"queries, {s['queries_failed']} failed")
-        counts = launches[name]
+        counts = launches.get(name, {})
         for kernel in PIPELINE_KERNELS[name]:
-            if counts[kernel] == 0:
+            if not counts.get(kernel):
                 fail(f"experiment {name} launched no {kernel}")
         for n in totals:
-            totals[n] += counts[n]
-        direct = RetrieverRegistry.create(block)
-        direct.build_index_from_corpus(docs)
-        want = direct.search(query_texts, top_k=s["top_k"])
-        check_results(want, query_texts, s["top_k"])
-        preds = json.loads(
-            (scratch / "results" / f"{name}_preds.json").read_text())
-        if [p["qid"] for p in preds] != list(query_texts) or any(
-            list(p["retriever_scores"].items())
-            != list(want[p["qid"]].items())[: pipe.MAX_CONTEXTS]
-            for p in preds
-        ):
-            fail(f"experiment {name}: preds differ from a direct search")
-        k_values = tuple(sorted({10, 100, s["top_k"]}))
-        if s["quality"] != evaluate_retrieval(want, qrels, k_values=k_values):
-            fail(f"experiment {name}: quality differs from evaluate_retrieval "
-                 "over the direct search")
+            totals[n] += counts.get(n, 0)
+        check_against_direct(name, direct[name], s, docs, queries, qrels,
+                             scratch / "results", made)
         st = s["stage_times_s"]
         log(f"experiment {name}: build {s['build_time_s']:.2f} s, warmup "
             f"{s['warmup_time_s']:.2f} s, retrieve {s['retrieve_time_s']:.2f} "
@@ -1733,11 +1770,9 @@ def experiment_pipeline(corpus, scratch):
             f"{s['queries_per_second']:.1f}; nDCG@10 "
             f"{s['quality']['ndcg@10']:.4f}; stages (s) "
             f"{json.dumps({k: round(v, 3) for k, v in st.items()})}; launches "
-            f"{ {k: v for k, v in counts.items() if v} }; preds and quality "
-            "equal a direct search of the same block")
-        del direct
-        torch.cuda.empty_cache()
-    del enc
+            f"{counts}; preds and quality equal a direct search of the same "
+            "block")
+    del enc, blocks, direct
     torch.cuda.empty_cache()
     return totals
 
@@ -2809,15 +2844,32 @@ def sharded_phase(indexes, queries, emb, scratch):
 # at 200,000 x 768, cut from its 1M default when the sharded and profiler
 # modes took the script to 989 s on an H100 (over 900 s of its 1,200 s
 # limit): phase 10 drives the same engines at 1M x 768 already (the
-# default ran 56-59 s, the cut about 20 s). batch-curve and dense-encoder
-# run at their defaults; quality-at-scale and fusion-sweep follow
-# (prose_modes), then the sharded and profiler modes (sharded_modes,
+# default ran 56-59 s, the cut about 20 s). batch-curve runs at its
+# defaults; storage and evidence (its probe and encoder steps; the encoder
+# step is dense-encoder at its defaults) follow, then quality-at-scale,
+# fusion-sweep (prose_modes) and pipeline-87k (pipeline_mode), then the
+# sharded and profiler modes (sharded_modes,
 # profiler_modes) and the stage and device-step profilers (stage_modes).
 BENCH_SCALE_DOCS = 200_000
 # int4-quality runs at 50,000 docs, cut from the script's 250,000 (72.5 s
 # on an H100; 100,000 docs took 36.2-39.3 s) when phase 13 grew by nine
 # modes; at its default it equalled the committed TPU row.
 BENCH_QUALITY_DOCS = 50_000
+# Paid for storage (12.9 s on an H100 machine), pipeline-87k (38.0 s) and
+# evidence --only probe,encoder (21.7 s, of which the encoder step is the
+# dense-encoder run it replaces, 8.3-10.4 s) when phase 13 grew by them:
+# - phase 7 runs only its contriever experiment: prose_87k.yaml's bm25 and
+#   hybrid blocks go through run_all_experiments on the card in
+#   pipeline-87k, whose preds and quality phase 13 holds to a direct search
+#   of each block (their two FiQA-scale experiments and direct builds took
+#   about 40 s of phase 7);
+# - phase 7's direct contriever check reuses the experiment's corpus and
+#   query embeddings (a second BERT-base pass over 57,638 docs and 2,048
+#   queries took about 30 s);
+# - profile-search runs at its default B = 1,024 only (B = 8 and 128 took
+#   29.9 s);
+# - the prose harvest is no longer counted root by root (a second harvest
+#   of every root, about 5 s).
 BENCH_MODES = (
     # (the mode's arguments, the kernels each of its rows must launch)
     ((), ("head_blockmax_i8",)),
@@ -2828,7 +2880,6 @@ BENCH_MODES = (
     (("dense-scale", "--docs", str(BENCH_SCALE_DOCS)), None),
     (("batch-curve",), ("head_blockmax_i8",)),
     (("int4-quality", "--docs", str(BENCH_QUALITY_DOCS)), None),
-    (("dense-encoder",), None),
 )
 BENCH_DENSE_KERNELS = {
     "symmetric": ("quantize_symmetric", "int8_similarity"),
@@ -3000,11 +3051,12 @@ def check_dense_encoder(rows, card, total):
 
 def prose_modes(card, total, scratch):
     """quality-at-scale (noisy, dense hashing, f32 control) and
-    fusion-sweep over this machine's prose harvest: counted root by root
-    first; at MIN_CHUNKS or more both CLIs at their defaults, below it
-    both CLIs must refuse and the modes' functions run on the chunks
-    there are. Then bm25_custom's IR metrics (and the sweep's sparse_only
-    row) must equal a run whose head step is the plain version."""
+    fusion-sweep over this machine's prose harvest: at MIN_CHUNKS or more
+    both CLIs at their defaults, below it both CLIs must refuse and the
+    modes' functions run on the chunks there are. Then bm25_custom's IR
+    metrics (and the sweep's sparse_only row) must equal a run whose head
+    step is the plain version. Returns the chunks, quality-at-scale's
+    object and the dataset of that plain run (pipeline-87k's, rebuilt)."""
     import contextlib
 
     from osr_tpu_torch.bench import fusion_sweep
@@ -3013,9 +3065,6 @@ def prose_modes(card, total, scratch):
 
     t0 = time.perf_counter()
     roots = prose_roots()
-    for root in roots:
-        log(f"phase 13 prose harvest: {len(harvest_chunks([root]))} chunks "
-            f"under {root}")
     chunks = harvest_chunks(roots, 100_000)
     log(f"phase 13 prose harvest: {len(chunks)} chunks in all (floor "
         f"{qas.MIN_CHUNKS}), {time.perf_counter() - t0:.1f} s")
@@ -3075,6 +3124,126 @@ def prose_modes(card, total, scratch):
         + ", ".join(f"{m} {s['ndcg@10']:.4f}" for m, s in
                     at_scale["osr_tpu_dense_hashing"].items()))
     log(f"phase 13 prose modes took {time.perf_counter() - t0:.1f} s")
+    return chunks, at_scale, ds
+
+
+def storage_mode(card):
+    """storage at its defaults (host work only): every synthetic row
+    passed, the unique-text rows measured or named in ``dropped``, the
+    anchor's store rates positive and its reference half null, no kernel,
+    this card's line."""
+    from osr_tpu_torch.bench import storage
+
+    row = bench_mode(("storage",))[-1]
+    keys_and_card("storage", row, storage.KEYS, card)
+    synthetic = row["synthetic"]
+    if (list(synthetic) != list(storage.SUITE_ROWS)
+            or not all(r["passed"] for r in synthetic.values())
+            or row["kernel_launches"]):
+        fail(f"phase 13 storage: {row}")
+    codecs = row["codec_comparison"]
+    for name in storage.UNIQUE_ROWS:
+        named = f"codec_comparison.{name}" in row["dropped"]
+        if (codecs[name] is None) != named or (
+                codecs[name] and not codecs[name]["compression_ratio"] > 0):
+            fail(f"phase 13 storage {name}: {codecs[name]}, dropped {named}")
+    anchor = row["same_host_anchor"]
+    if not all(anchor[k] > 0 for k in storage.OSR_KEYS) or any(
+            anchor[k] is not None for k in storage.REF_KEYS):
+        fail(f"phase 13 storage anchor: {anchor}")
+    log("phase 13 storage: synthetic build "
+        f"{synthetic['build']['docs_per_s']} docs/s (compression "
+        f"{synthetic['build']['compression_ratio']}), scan "
+        f"{synthetic['sequential_scan']['docs_per_s']} docs/s; unique text "
+        + ", ".join(f"{n} {codecs[n]}" for n in storage.UNIQUE_ROWS)
+        + f"; anchor ({anchor['num_docs']} docs) "
+        + ", ".join(f"{k} {anchor[k]}" for k in storage.OSR_KEYS)
+        + f"; dropped {sorted(row['dropped'])}")
+
+
+EVIDENCE_STEPS = ("probe", "encoder")
+
+
+def evidence_steps(card, total, scratch):
+    """evidence --only probe,encoder --out DIR: both steps rc 0 with their
+    logs under DIR, the probe's row this card, and the encoder's last row
+    (the dense-encoder mode at its defaults, run only here) held by
+    check_dense_encoder."""
+    from osr_tpu_torch.bench import evidence
+
+    out = scratch / "evidence"
+    row = bench_mode(("evidence", "--only", ",".join(EVIDENCE_STEPS),
+                      "--out", str(out)))[-1]
+    keys_and_card("evidence", row, evidence.KEYS, card)
+    steps = row["steps"]
+    if (list(steps) != list(EVIDENCE_STEPS) or row["aborted"]
+            or row["failed"] or any(
+                st["rc"] != 0 or st["log"] != str(out / f"evidence_{n}.log")
+                or not Path(st["log"]).is_file() for n, st in steps.items())):
+        fail(f"phase 13 evidence: {row}")
+    if (steps["probe"]["last_row"] or {}).get("device") != card:
+        fail(f"phase 13 evidence probe: {steps['probe']}")
+    check_dense_encoder([steps["encoder"]["last_row"]], card, total)
+    log("phase 13 evidence: " + ", ".join(
+        f"{n} rc {st['rc']} in {st['s']} s" for n, st in steps.items()))
+
+
+def pipeline_mode(card, total, scratch, chunks, at_scale, ds):
+    """pipeline-87k at its defaults over the same harvest, its summaries
+    and preds under the phase's scratch directory (below MIN_CHUNKS the CLI
+    must refuse and its function runs on the chunks there are): every
+    experiment ok, a head kernel in each and K7 + K5 in the hybrid; each
+    experiment's preds and quality equal a direct search of its block over
+    ``ds``, the same dataset rebuilt by prose_modes; nDCG@10 printed beside
+    quality-at-scale's."""
+    import contextlib
+
+    from osr_tpu_torch.bench import pipeline_87k
+    from osr_tpu_torch.bench import quality_at_scale as qas
+    from osr_tpu_torch.pipeline.config import load_config
+    from osr_tpu_torch.storage.loaders import (
+        load_corpus,
+        load_qrels,
+        load_queries,
+    )
+
+    out = scratch / "pipeline_87k"
+    if len(chunks) >= qas.MIN_CHUNKS:
+        row = bench_mode(("pipeline-87k", "--out", str(out)))[-1]
+    else:
+        bench_mode(("pipeline-87k",), refused=True)
+        with contextlib.redirect_stdout(sys.stderr):
+            row = pipeline_87k.run(chunks, out=str(out), device="cuda")
+    keys_and_card("pipeline-87k", row, pipeline_87k.KEYS, card)
+    blocks = {e["name"]: e["retriever"]
+              for e in load_config(pipeline_87k.CONFIG)["experiments"]}
+    if (row["num_docs"] != len(chunks)
+            or list(row["experiments"]) != list(blocks)
+            or row["num_queries"] != at_scale["num_queries"]):
+        fail(f"phase 13 pipeline-87k: {row}")
+    overall = json.loads((out / "overall_results.json").read_text())
+    docs, queries, qrels = load_corpus(ds), load_queries(ds), load_qrels(ds)
+    for name, e in row["experiments"].items():
+        counts = e["kernel_launches"]
+        if e["status"] != "ok" or not any(counts.get(k)
+                                          for k in INT8_HEAD_KERNELS):
+            fail(f"phase 13 pipeline-87k {name}: {e}")
+        dense = blocks[name]["type"] == "hybrid"
+        check_launched(f"pipeline-87k {name}", counts,
+                       BENCH_DENSE_KERNELS["symmetric"] if dense else (),
+                       total)
+        check_against_direct(name, blocks[name], overall[name], docs,
+                             queries, qrels, out, row["num_queries"])
+        section, method = (("osr_tpu_dense_hashing", "hybrid_rrf_idf")
+                           if dense else ("osr_tpu", "bm25_custom"))
+        stages = {k: round(v, 3) for k, v in e["stage_times_s"].items()}
+        log(f"phase 13 pipeline-87k {name}: nDCG@10 "
+            f"{e['quality']['ndcg@10']:.4f} (quality-at-scale {method} "
+            f"{at_scale[section][method]['ndcg@10']:.4f}); retrieval QPS "
+            f"{e['retrieval_qps']:.1f}, pipeline QPS "
+            f"{e['queries_per_second']:.1f}; stages (s) {json.dumps(stages)}; "
+            f"launches {counts}; preds and quality equal a direct search of "
+            "the same block")
 
 
 # sharded-scale runs at 25,000 docs, cut from its 200,000 default for the
@@ -3129,15 +3298,10 @@ def sharded_modes(card, total, world1):
             f"of 3 {world1['qps']:.1f} / {world1['flat_qps']:.1f}")
 
 
-# profile-search runs at B = 8 and 128 besides its default 1,024: where
-# the batch curve's time goes at small batches.
-PROFILE_SEARCH_BATCHES = (8, 128, 1024)
-
-
 def profiler_modes(card, total):
     """profile-trace (the trace's K2 events as many as the launches),
-    profile-latency (K2 on every iteration) and profile-search at
-    PROFILE_SEARCH_BATCHES (K2), at their defaults otherwise."""
+    profile-latency (K2 on every iteration) and profile-search (K2), at
+    their defaults."""
     from osr_tpu_torch.bench import profile_latency, profile_search
 
     row = bench_mode(("profile-trace",))[-1]
@@ -3165,19 +3329,19 @@ def profiler_modes(card, total):
         + f"; engine search() e2e {row['engine_search_e2e_ms']['p50']} / "
         f"{row['engine_search_e2e_ms']['p95']}")
 
-    for b in PROFILE_SEARCH_BATCHES:
-        row = bench_mode(("profile-search", "--batch", str(b)))[-1]
-        if (row["batch"] != b or row["device"] != card
-                or profile_search.DEVICE_STAGE not in row["stages_ms"]
-                or not row["device_step_event_ms"] > 0):
-            fail(f"phase 13 profile-search B={b}: {row}")
-        check_launched(f"profile-search B={b}", row["kernel_launches"],
-                       ("head_blockmax_i8",), total)
-        log(f"phase 13 profile-search B={b} ms a batch: "
-            + ", ".join(f"{k} {v}" for k, v in row["stages_ms"].items())
-            + f"; device step (CUDA events) {row['device_step_event_ms']}; "
-            "batch_stages "
-            + ", ".join(f"{k} {v}" for k, v in row["batch_stages_ms"].items()))
+    row = bench_mode(("profile-search",))[-1]
+    b = row["batch"]
+    if (row["device"] != card
+            or profile_search.DEVICE_STAGE not in row["stages_ms"]
+            or not row["device_step_event_ms"] > 0):
+        fail(f"phase 13 profile-search B={b}: {row}")
+    check_launched(f"profile-search B={b}", row["kernel_launches"],
+                   ("head_blockmax_i8",), total)
+    log(f"phase 13 profile-search B={b} ms a batch: "
+        + ", ".join(f"{k} {v}" for k, v in row["stages_ms"].items())
+        + f"; device step (CUDA events) {row['device_step_event_ms']}; "
+        "batch_stages "
+        + ", ".join(f"{k} {v}" for k, v in row["batch_stages_ms"].items()))
 
 
 def keys_and_card(label, row, keys, card):
@@ -3285,9 +3449,6 @@ def bench_phase(card, scratch, world1):
         if mode == "int4-quality":
             check_int4_quality(rows, card, total)
             continue
-        if mode == "dense-encoder":
-            check_dense_encoder(rows, card, total)
-            continue
         if mode == "dense-scale":
             if [r["quantization"] for r in rows] != ["symmetric", "int4"]:
                 fail(f"phase 13 dense-scale: rows {rows}")
@@ -3305,7 +3466,10 @@ def bench_phase(card, scratch, world1):
         if not qps > 0 or done < 0.9 * queries:
             fail(f"phase 13 {mode}: QPS {qps}, {done}/{queries} non-empty")
         check_launched(mode, row["kernel_launches"], kernels, total)
-    prose_modes(card, total, scratch)
+    storage_mode(card)
+    evidence_steps(card, total, scratch)
+    chunks, at_scale, ds = prose_modes(card, total, scratch)
+    pipeline_mode(card, total, scratch, chunks, at_scale, ds)
     sharded_modes(card, total, world1)
     profiler_modes(card, total)
     stage_modes(card, total, dump)

@@ -4,8 +4,8 @@ int4-quality, quality-at-scale, fusion-sweep, dense-encoder,
 sharded-scale, sharded-overhead, profile-trace, profile-latency,
 profile-search, profile-stages-1m, profile-host-scale, profile-hybrid,
 profile-device, profile-fused, profile-narrow, profile-blocksel,
-profile-topk2 and profile-topk-fix; the options are the mode's own
-(``--help`` after the mode lists them)."""
+profile-topk2, profile-topk-fix, storage, pipeline-87k and evidence; the
+options are the mode's own (``--help`` after the mode lists them)."""
 
 import sys
 
@@ -15,7 +15,8 @@ MODES = (
     "sharded-scale", "sharded-overhead", "profile-trace", "profile-latency",
     "profile-search", "profile-stages-1m", "profile-host-scale",
     "profile-hybrid", "profile-device", "profile-fused", "profile-narrow",
-    "profile-blocksel", "profile-topk2", "profile-topk-fix",
+    "profile-blocksel", "profile-topk2", "profile-topk-fix", "storage",
+    "pipeline-87k", "evidence",
 )
 
 

@@ -552,5 +552,5 @@ def test_device_mode_without_a_card_prints_no_value(mode):
 def test_modes_are_registered():
     from osr_tpu_torch.bench.__main__ import MODES
 
-    assert len(MODES) == 23
+    assert len(MODES) == 26
     assert set(DEVICE_MODES) | {"profile-host-scale"} <= set(MODES)

@@ -267,6 +267,8 @@ import osr_tpu_torch.bench.profile_hybrid, osr_tpu_torch.bench.profile_device
 import osr_tpu_torch.bench.profile_fused, osr_tpu_torch.bench.profile_narrow
 import osr_tpu_torch.bench.profile_blocksel, osr_tpu_torch.bench.profile_topk2
 import osr_tpu_torch.bench.profile_topk_fix
+import osr_tpu_torch.bench.storage, osr_tpu_torch.bench.pipeline_87k
+import osr_tpu_torch.bench.evidence
 bad = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "osr_tpu", "ml_dtypes", "transformers", "yaml")
