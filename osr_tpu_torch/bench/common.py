@@ -2,12 +2,12 @@
 (``bench.py:30-50``) and the tools' seed-42 one, the H100's peak rates,
 the card's name and power limit, the head kernels' byte and operation
 count, the sparse engines' exactness rules (the merge check against the
-plain head, the sharded scripts' mismatch rule), a batch timed stage by
-stage, CUDA-event timing and the device-stage scripts' enqueued timing,
-pinned fetches, a top-k comparison up to tied scores, the index state
-handed to spawned ranks, and the roots of the prose harvest. ``chip_smoke.py`` takes these from here,
-so the workload, the bound, the checks and the stages have one
-definition."""
+plain head, the sharded scripts' mismatch rule), a batch's stages read
+from the engine's own spans, CUDA-event timing and the device-stage
+scripts' enqueued timing, pinned fetches, a top-k comparison up to tied
+scores, the index state handed to spawned ranks, and the roots of the
+prose harvest. ``chip_smoke.py`` takes these from here, so the workload,
+the bound, the checks and the stages have one definition."""
 
 from __future__ import annotations
 
@@ -287,61 +287,57 @@ def differing_dicts(a, b) -> int:
     return sum(a[q] != b[q] for q in b)
 
 
+def span_self_ms(events, prefix: str = "osr.") -> Dict[str, float]:
+    """Self milliseconds of the spans whose names start with ``prefix``,
+    summed by name, in the order the names first start. ``events`` are
+    (name, thread, start ns, end ns); a span's self time is its own less
+    that of the spans of ``prefix`` nested directly in it on its thread."""
+    spans = sorted(
+        (e for e in events if e[0].startswith(prefix)),
+        key=lambda e: (e[1], e[2], -e[3]),
+    )
+    first = {}
+    self_ns: Dict[str, int] = {}
+    open_spans = []  # (thread, end ns, name) of the spans enclosing this one
+    for name, thread, start, end in spans:
+        while open_spans and (
+            open_spans[-1][0] != thread or open_spans[-1][1] <= start
+        ):
+            open_spans.pop()
+        if open_spans:
+            parent = open_spans[-1][2]
+            self_ns[parent] -= end - start
+        self_ns[name] = self_ns.get(name, 0) + end - start
+        first.setdefault(name, start)
+        open_spans.append((thread, end, name))
+    return {n: self_ns[n] / 1e6 for n in sorted(first, key=first.get)}
+
+
 def batch_stages(engine, texts, top_k) -> Dict[str, float]:
-    """Wall time (ms) of each stage of one batch of a ``SparseSearchEngine``
-    run one after another (inside search() the candidate head dots overlap
-    the device step, or wait for it where the candidate filter applies):
-    encode, tail_walk, device_step_and_copy, tau_filter (where it
-    applies), cand_head_dots, merge, result_dicts."""
-    from osr_tpu_torch.index import postings as P
+    """Self time (ms) of each ``osr.sparse.*`` span of one
+    ``engine.search`` over ``texts`` (one batch where they fit the
+    engine's largest batch size) under a CPU-only ``torch.profiler``: the
+    served path, where the candidates' head dots overlap the device step
+    (or wait for it where the candidate filter applies). The query cache
+    is emptied first, so every query runs. The values sum to the call's
+    time (``osr.sparse.search`` keeps what no stage span covers)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    d = engine._dev
-    ms = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        now = time.perf_counter()
-        ms[name] = (now - t) * 1e3
-        t = now
-
-    enc = engine.encode_queries(texts)
-    lap("encode")
-    cand = engine._tail_candidates(enc, enc.head_ids.shape[0])
-    lap("tail_walk")
-    top, rows, _ = engine.device_step(
-        engine._upload(enc.head_ids), engine._upload(enc.head_weights), top_k
+    engine.clear_cache()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        engine.search({f"q{i}": t for i, t in enumerate(texts)}, top_k)
+    return span_self_ms(
+        (e.name(), e.start_thread_id(), e.start_ns(), e.end_ns())
+        for e in prof.profiler.kineto_results.events()
     )
-    top, rows = top.cpu().numpy(), rows.cpu().numpy()
-    lap("device_step_and_copy")
-    slack = P.merge_tau_slack(
-        engine._slack_per_term, enc.head_flat_ids, enc.head_flat_counts,
-        enc.head_ptr,
-    )
-    nq = max(1, len(enc.head_ptr) - 1)
-    if (
-        engine.cand_filter_per_query
-        and cand.total >= engine.cand_filter_per_query * nq
-    ):
-        cand = P.filter_candidates_by_tau(
-            cand, top, rows, top_k, slack, d.num_rows
-        )
-        lap("tau_filter")
-    cand_head = engine._cand_head_host(cand, enc)
-    lap("cand_head_dots")
-    scores, ids = P.merge_host(
-        top, rows, cand, cand_head, d.num_rows, top_k, tau_slack=slack
-    )
-    lap("merge")
-    engine._result_dicts(scores, ids)
-    lap("result_dicts")
-    return ms
 
 
 def median_stages(engine, texts, top_k, runs=3) -> Dict[str, float]:
-    """:func:`batch_stages`, each stage's median over ``runs`` batches."""
+    """:func:`batch_stages`, each stage's median over ``runs`` calls (a
+    stage missing from a call, such as a re-dispatch, counts 0 there)."""
     out = [batch_stages(engine, texts, top_k) for _ in range(runs)]
-    return {k: float(np.median([r[k] for r in out])) for k in out[0]}
+    names = list(dict.fromkeys(k for r in out for k in r))
+    return {k: float(np.median([r.get(k, 0.0) for r in out])) for k in names}
 
 
 def median_ms(fn: Callable[[], object], reps: int, warmup: int = 2) -> float:

@@ -17,7 +17,8 @@ in milliseconds per batch over n = 5 batches:
 - ``host merge``: ``merge_host`` over the five fetched results.
 
 The row also holds ``batch_stages_ms``, ``common.batch_stages`` for one
-batch of the same B (median of 3), the split ``chip_smoke.py``'s phase 5
+batch of the same B (median of 3: the self time of each ``osr.sparse.*``
+span of one ``engine.search``), the split ``chip_smoke.py``'s phase 5
 prints at B = 3,328, and ``kernel_launches`` (K2 at FiQA scale). Prints
 the script's table on stderr and the row as its last line.
 
@@ -159,7 +160,7 @@ def run(
     if step_event_ms is not None:
         log(f"  {'device step, CUDA events (median)':<38}"
             f"{step_event_ms:8.4f} ms")
-    log("one batch stage by stage (common.batch_stages, median of 3): "
+    log("one batch's spans (common.batch_stages, self ms, median of 3): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     row = {
         "metric": METRIC,

@@ -32,6 +32,12 @@ quantized corpus on the device. One batch is one device step: quantize
 the queries (K7), score them against the corpus (K5 for int8, K6 for
 int4), exact top-k; its result comes back through the same pinned
 buffers and event as the sparse engine's.
+
+Spans and counters. Each stage of a batch or a request is an
+``osr.sparse.*`` / ``osr.dense.*`` span (``utils/timing.py:span``): a
+``torch.profiler`` range while a profiler runs, nothing otherwise. The
+sparse engine also counts its queries, batches, tail candidates and
+re-dispatches (``stats()["counters"]``).
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ from osr_tpu_torch.retrieval.results import (
     as_object_names,
     assemble_result_dicts,
 )
+from osr_tpu_torch.utils.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -359,7 +366,11 @@ class SparseSearchEngine:
             layout, self.device,
             chunk_rows=self._chunk_rows(score_chunk_rows) or None,
         )
-        self._redispatches = 0
+        # Real queries and batches dispatched, tail candidates walked,
+        # extraction batches re-run by the standard program.
+        self._counts = dict.fromkeys(
+            ("queries", "batches", "tail_candidates", "redispatches"), 0
+        )
         (
             self._host_head,
             self._host_head_dtype,
@@ -422,28 +433,30 @@ class SparseSearchEngine:
 
     def _tail_candidates(self, enc: EncodedBatch, batch_size: int):
         layout = self.index.layout
-        return tail_candidates_flat(
-            layout.post_ptr,
-            layout.post_rows,
-            layout.post_weights,
-            enc.tail_ids,
-            enc.tail_counts,
-            enc.tail_ptr,
-            batch_size,
-            num_rows=self._dev.num_rows,
-        )
+        with span("osr.sparse.tail_walk"):
+            return tail_candidates_flat(
+                layout.post_ptr,
+                layout.post_rows,
+                layout.post_weights,
+                enc.tail_ids,
+                enc.tail_counts,
+                enc.tail_ptr,
+                batch_size,
+                num_rows=self._dev.num_rows,
+            )
 
     def _cand_head_host(self, cand: FlatCandidates, enc: EncodedBatch):
-        return cand_head_scores_host(
-            self._host_head,
-            self._host_head_dtype,
-            self.index.layout.head_scales,
-            cand,
-            enc.head_flat_ids,
-            enc.head_flat_counts,
-            enc.head_ptr,
-            head_t=self._head_t,
-        )
+        with span("osr.sparse.cand_dots"):
+            return cand_head_scores_host(
+                self._host_head,
+                self._host_head_dtype,
+                self.index.layout.head_scales,
+                cand,
+                enc.head_flat_ids,
+                enc.head_flat_counts,
+                enc.head_ptr,
+                head_t=self._head_t,
+            )
 
     def _extract_applies(self, rows: int, top_k: int) -> bool:
         """The extraction kernel runs where a sweep of ``rows`` rows would
@@ -554,48 +567,56 @@ class SparseSearchEngine:
         first; the candidates' head dots run while the device works).
 
         Returns an opaque in-flight handle for :meth:`finish_batch`."""
-        d = self._dev
-        cand = self._tail_candidates(enc, enc.head_ids.shape[0])
-        ids = self._upload(enc.head_ids)
-        w = self._upload(enc.head_weights)
-        if self.merge_backend == "device":
-            # Chunking and extraction need the host merge, so this is the
-            # one unchunked standard sweep; its candidates' head scores come
-            # from the same score matrix as its top-k: no slack.
-            flat = (self._upload(cand.rows), self._upload(cand.cols))
-            top, rows, _, cand_head_dev = self._sweep(
-                ids, w, d.head, d.valid, top_k, False, flat
+        with span("osr.sparse.dispatch"):
+            d = self._dev
+            cand = self._tail_candidates(enc, enc.head_ids.shape[0])
+            counts = self._counts
+            counts["queries"] += enc.num_queries
+            counts["batches"] += 1
+            counts["tail_candidates"] += cand.total
+            ids = self._upload(enc.head_ids)
+            w = self._upload(enc.head_weights)
+            if self.merge_backend == "device":
+                # Chunking and extraction need the host merge, so this is
+                # the one unchunked standard sweep; its candidates' head
+                # scores come from the same score matrix as its top-k: no
+                # slack.
+                flat = (self._upload(cand.rows), self._upload(cand.cols))
+                top, rows, _, cand_head_dev = self._sweep(
+                    ids, w, d.head, d.valid, top_k, False, flat
+                )
+                result = _PendingResult(
+                    (top, rows, cand_head_dev), self.device
+                )
+                return cand, result, None, np.zeros(
+                    enc.head_ids.shape[0], dtype=np.float32
+                ), None
+            top, rows, unsafe = self.device_step(ids, w, top_k)
+            if unsafe is None:
+                result, redo = _PendingResult((top, rows), self.device), None
+            else:
+                # Keep the query tensors: a batch whose flag is set re-runs
+                # the standard program from them.
+                result = _PendingResult((top, rows, unsafe), self.device)
+                redo = (ids, w)
+            tau_slack = merge_tau_slack(
+                self._slack_per_term,
+                enc.head_flat_ids,
+                enc.head_flat_counts,
+                enc.head_ptr,
             )
-            result = _PendingResult((top, rows, cand_head_dev), self.device)
-            return cand, result, None, np.zeros(
-                enc.head_ids.shape[0], dtype=np.float32
-            ), None
-        top, rows, unsafe = self.device_step(ids, w, top_k)
-        if unsafe is None:
-            result, redo = _PendingResult((top, rows), self.device), None
-        else:
-            # Keep the query tensors: a batch whose flag is set re-runs
-            # the standard program from them.
-            result = _PendingResult((top, rows, unsafe), self.device)
-            redo = (ids, w)
-        tau_slack = merge_tau_slack(
-            self._slack_per_term,
-            enc.head_flat_ids,
-            enc.head_flat_counts,
-            enc.head_ptr,
-        )
-        nq_real = max(1, len(enc.head_ptr) - 1)
-        if (
-            self.cand_filter_per_query
-            and cand.total >= self.cand_filter_per_query * nq_real
-        ):
-            # Large candidate loads: defer the head dot until the device
-            # top-k allows the exact tau filter
-            # (postings.py:filter_candidates_by_tau).
-            cand_head = ("tau_filter", enc)
-        else:
-            cand_head = self._cand_head_host(cand, enc)
-        return cand, result, cand_head, tau_slack, redo
+            nq_real = max(1, len(enc.head_ptr) - 1)
+            if (
+                self.cand_filter_per_query
+                and cand.total >= self.cand_filter_per_query * nq_real
+            ):
+                # Large candidate loads: defer the head dot until the
+                # device top-k allows the exact tau filter
+                # (postings.py:filter_candidates_by_tau).
+                cand_head = ("tau_filter", enc)
+            else:
+                cand_head = self._cand_head_host(cand, enc)
+            return cand, result, cand_head, tau_slack, redo
 
     def finish_batch(
         self, in_flight, top_k: int
@@ -605,29 +626,34 @@ class SparseSearchEngine:
         program first (the narrowed candidates could miss a top-k
         member)."""
         cand, result, cand_head, tau_slack, redo = in_flight
-        arrays = result.wait()
+        with span("osr.sparse.wait"):
+            arrays = result.wait()
         head_s, head_r = arrays[0], arrays[1]
         if cand_head is None:
             cand_head = arrays[2]
         if redo is not None and bool(arrays[2]):
-            self._redispatches += 1
-            top, rows = self._standard_step(*redo, top_k)
-            head_s, head_r = _PendingResult((top, rows), self.device).wait()
+            self._counts["redispatches"] += 1
+            with span("osr.sparse.redispatch"):
+                top, rows = self._standard_step(*redo, top_k)
+                head_s, head_r = _PendingResult((top, rows), self.device).wait()
         if isinstance(cand_head, tuple):
             enc = cand_head[1]
-            cand = filter_candidates_by_tau(
-                cand, head_s, head_r, top_k, tau_slack, self._dev.num_rows
-            )
+            with span("osr.sparse.tau_filter"):
+                cand = filter_candidates_by_tau(
+                    cand, head_s, head_r, top_k, tau_slack,
+                    self._dev.num_rows,
+                )
             cand_head = self._cand_head_host(cand, enc)
-        return merge_host(
-            head_s,
-            head_r,
-            cand,
-            cand_head,
-            self._dev.num_rows,
-            top_k,
-            tau_slack=tau_slack,
-        )
+        with span("osr.sparse.merge"):
+            return merge_host(
+                head_s,
+                head_r,
+                cand,
+                cand_head,
+                self._dev.num_rows,
+                top_k,
+                tau_slack=tau_slack,
+            )
 
     def search_token_batch(
         self, texts: Sequence[str], top_k: int
@@ -681,12 +707,13 @@ class SparseSearchEngine:
 
     def encode_queries(self, texts: Sequence[str]) -> EncodedBatch:
         """Tokenize + pad query strings (at most the largest batch size)."""
-        return encode_query_batch(
-            self.encoder,
-            texts,
-            pick_batch_size(self.batch_sizes, len(texts)),
-            self.index.layout.head_terms,
-        )
+        with span("osr.sparse.encode"):
+            return encode_query_batch(
+                self.encoder,
+                texts,
+                pick_batch_size(self.batch_sizes, len(texts)),
+                self.index.layout.head_terms,
+            )
 
     def _result_dicts(self, scores, ids) -> List[Dict[str, float]]:
         n = len(self.index.doc_ids)
@@ -698,46 +725,48 @@ class SparseSearchEngine:
     ) -> Dict[str, Dict[str, float]]:
         """Reference-compatible search: {qid: {doc_id: score}}, scores > 0
         only, sorted descending; empty and all-OOV queries give {}."""
-        results: Dict[str, Dict[str, float]] = {}
-        pending: List[Tuple[str, str]] = []
-        for qid, text in queries.items():
-            text = (text or "").strip()
-            if not text:
-                results[qid] = {}
-                continue
-            if self._query_cache is not None:
-                with self._cache_lock:
-                    hit = self._query_cache.get((text, top_k))
-                if hit is not None:
-                    results[qid] = self._result_dicts(
-                        hit[1][None, :], hit[0][None, :]
-                    )[0]
+        with span("osr.sparse.search"):
+            results: Dict[str, Dict[str, float]] = {}
+            pending: List[Tuple[str, str]] = []
+            for qid, text in queries.items():
+                text = (text or "").strip()
+                if not text:
+                    results[qid] = {}
                     continue
-            pending.append((qid, text))
-
-        done = []
-        run_pipelined(
-            pending,
-            self.batch_sizes[-1],
-            lambda chunk: self.search_encoded_device(
-                self.encode_queries([t for _, t in chunk]), top_k
-            ),
-            lambda chunk, handle: done.append(
-                (chunk, *self.finish_batch(handle, top_k))
-            ),
-        )
-        for chunk, scores, ids in done:
-            dicts = self._result_dicts(scores, ids)
-            for row, (qid, text) in enumerate(chunk):
                 if self._query_cache is not None:
                     with self._cache_lock:
-                        if len(self._query_cache) < self._cache_limit:
-                            self._query_cache[(text, top_k)] = (
-                                ids[row],
-                                scores[row],
-                            )
-                results[qid] = dicts[row]
-        return results
+                        hit = self._query_cache.get((text, top_k))
+                    if hit is not None:
+                        results[qid] = self._result_dicts(
+                            hit[1][None, :], hit[0][None, :]
+                        )[0]
+                        continue
+                pending.append((qid, text))
+
+            done = []
+            run_pipelined(
+                pending,
+                self.batch_sizes[-1],
+                lambda chunk: self.search_encoded_device(
+                    self.encode_queries([t for _, t in chunk]), top_k
+                ),
+                lambda chunk, handle: done.append(
+                    (chunk, *self.finish_batch(handle, top_k))
+                ),
+            )
+            for chunk, scores, ids in done:
+                with span("osr.sparse.dicts"):
+                    dicts = self._result_dicts(scores, ids)
+                    for row, (qid, text) in enumerate(chunk):
+                        if self._query_cache is not None:
+                            with self._cache_lock:
+                                if len(self._query_cache) < self._cache_limit:
+                                    self._query_cache[(text, top_k)] = (
+                                        ids[row],
+                                        scores[row],
+                                    )
+                        results[qid] = dicts[row]
+            return results
 
     def search_weighted(
         self,
@@ -746,25 +775,28 @@ class SparseSearchEngine:
     ) -> Dict[str, Dict[str, float]]:
         """Learned-sparse search: queries are {term: weight} mappings used
         verbatim. Same result contract as :meth:`search`."""
-        results: Dict[str, Dict[str, float]] = {}
-        qids = [q for q, vec in queries.items() if vec]
-        for q, vec in queries.items():
-            if not vec:
-                results[q] = {}
-        max_b = self.batch_sizes[-1]
-        for i in range(0, len(qids), max_b):
-            chunk = qids[i : i + max_b]
-            enc = encode_weighted_batch(
-                self.index.vocabulary,
-                [queries[q] for q in chunk],
-                pick_batch_size(self.batch_sizes, len(chunk)),
-                self.index.layout.head_terms,
-            )
-            scores, ids = self.finish_batch(
-                self.search_encoded_device(enc, top_k), top_k
-            )
-            results.update(zip(chunk, self._result_dicts(scores, ids)))
-        return results
+        with span("osr.sparse.search"):
+            results: Dict[str, Dict[str, float]] = {}
+            qids = [q for q, vec in queries.items() if vec]
+            for q, vec in queries.items():
+                if not vec:
+                    results[q] = {}
+            max_b = self.batch_sizes[-1]
+            for i in range(0, len(qids), max_b):
+                chunk = qids[i : i + max_b]
+                with span("osr.sparse.encode"):
+                    enc = encode_weighted_batch(
+                        self.index.vocabulary,
+                        [queries[q] for q in chunk],
+                        pick_batch_size(self.batch_sizes, len(chunk)),
+                        self.index.layout.head_terms,
+                    )
+                scores, ids = self.finish_batch(
+                    self.search_encoded_device(enc, top_k), top_k
+                )
+                with span("osr.sparse.dicts"):
+                    results.update(zip(chunk, self._result_dicts(scores, ids)))
+            return results
 
     def clear_cache(self) -> None:
         if self._query_cache is not None:
@@ -780,7 +812,8 @@ class SparseSearchEngine:
         if self._dev.chunks is not None:
             s["score_chunks"] = len(self._dev.chunks)
         if self.narrow_backend == "extract":
-            s["extract_redispatches"] = self._redispatches
+            s["extract_redispatches"] = self._counts["redispatches"]
+        s["counters"] = dict(self._counts)
         if self._query_cache is not None:
             s["query_cache_size"] = len(self._query_cache)
         return s
@@ -1031,21 +1064,24 @@ class DenseSearchEngine:
         """Enqueue the device step for (B, dim) f32 query vectors (array or
         tensor) and start its result copy; returns an in-flight handle for
         :meth:`collect_vectors` without waiting for the device."""
-        if not isinstance(query_vectors, torch.Tensor):
-            query_vectors = np.asarray(query_vectors, dtype=np.float32)
-        q = _upload(query_vectors, self.device).float()
-        if q.dim() != 2 or q.shape[1] != self.dim:
-            raise ValueError(
-                f"queries must be (B, {self.dim}), got {tuple(q.shape)}"
-            )
-        if self._chunks is None:
-            out = self._step(q, self._docs, self._scales, self._mins, top_k)
-            return (_PendingResult(out, self.device), None, top_k)
-        tensors, bases = [], []
-        for docs, scales, mins, base in self._chunks:
-            tensors += self._step(q, docs, scales, mins, top_k)
-            bases.append(base)
-        return (_PendingResult(tensors, self.device), bases, top_k)
+        with span("osr.dense.dispatch"):
+            if not isinstance(query_vectors, torch.Tensor):
+                query_vectors = np.asarray(query_vectors, dtype=np.float32)
+            with span("osr.dense.upload"):
+                q = _upload(query_vectors, self.device).float()
+            if q.dim() != 2 or q.shape[1] != self.dim:
+                raise ValueError(
+                    f"queries must be (B, {self.dim}), got {tuple(q.shape)}"
+                )
+            if self._chunks is None:
+                out = self._step(q, self._docs, self._scales, self._mins,
+                                 top_k)
+                return (_PendingResult(out, self.device), None, top_k)
+            tensors, bases = [], []
+            for docs, scales, mins, base in self._chunks:
+                tensors += self._step(q, docs, scales, mins, top_k)
+                bases.append(base)
+            return (_PendingResult(tensors, self.device), bases, top_k)
 
     def collect_vectors(self, in_flight) -> Tuple[np.ndarray, np.ndarray]:
         """Wait for a :meth:`dispatch_vectors` handle: (scores (B, k) f32,
@@ -1053,7 +1089,8 @@ class DenseSearchEngine:
         ties to the lower doc row, as one selection over the corpus would
         order them."""
         pending, bases, top_k = in_flight
-        arrays = pending.wait()
+        with span("osr.dense.wait"):
+            arrays = pending.wait()
         if bases is None:
             return arrays[0], arrays[1]
         vals = np.concatenate(arrays[0::2], axis=1)
@@ -1085,14 +1122,17 @@ class DenseSearchEngine:
         qids = list(query_vectors.keys())
         if not qids:
             return {}
-        batch = np.stack(
-            [np.asarray(query_vectors[q], dtype=np.float32) for q in qids]
-        )
-        scores, ids = self.search_vectors(batch, top_k=top_k)
-        if self._doc_names is None:
-            self._doc_names = as_object_names(self.doc_ids)
-        n = len(self.doc_ids)
-        mask = (scores > min_score) & (ids >= 0) & (ids < n)
-        return dict(
-            zip(qids, assemble_result_dicts(self._doc_names, ids, scores, mask))
-        )
+        with span("osr.dense.search"):
+            batch = np.stack(
+                [np.asarray(query_vectors[q], dtype=np.float32) for q in qids]
+            )
+            scores, ids = self.search_vectors(batch, top_k=top_k)
+            with span("osr.dense.dicts"):
+                if self._doc_names is None:
+                    self._doc_names = as_object_names(self.doc_ids)
+                n = len(self.doc_ids)
+                mask = (scores > min_score) & (ids >= 0) & (ids < n)
+                return dict(zip(
+                    qids,
+                    assemble_result_dicts(self._doc_names, ids, scores, mask),
+                ))

@@ -11,15 +11,34 @@ around device work must synchronize — ``block_and_time`` synchronizes every
 CUDA device that the thunk's result lives on, so the device queue can't
 hide behind async dispatch; ``device_seconds`` times device work with
 CUDA events instead, for calls too short for the host clock.
+
+``span`` marks a stage of the served path for ``torch.profiler``: a
+``record_function`` range while a profiler runs, so the stage lands on the
+trace's clock beside the device's operations, and nothing otherwise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler is running, else a shared no-op context (a range costs host
+    time even with no profiler running; the check costs far less). The
+    engines name theirs ``osr.<engine>.<stage>`` and mark batches and
+    requests, never single queries."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def process_rss_mb() -> float:

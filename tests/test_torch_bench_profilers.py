@@ -371,7 +371,7 @@ def test_profile_search_stage_names_are_the_scripts(search_run):
     assert list(row["stages_ms"]) == want
     assert row["device_step_event_ms"] is None  # no CUDA events here
     assert list(row["batch_stages_ms"])[:3] == [
-        "encode", "tail_walk", "device_step_and_copy"]
+        "osr.sparse.search", "osr.sparse.encode", "osr.sparse.dispatch"]
     assert row["batch"] == 64 and row["batches"] == profile_search.BATCHES
 
 
