@@ -2014,11 +2014,23 @@ def exact(name, got, want):
     return err
 
 
-def dense_calls(name, args):
-    """(kernel call, plain call) of one dense kernel on ``args``."""
+def dense_calls(name, args, maxima=False):
+    """(kernel call, plain call) of one dense kernel on ``args``; with
+    ``maxima`` K5/K6's launch that writes the block maxima too, against
+    the plain scores and ``topk.block_max`` of them."""
     from osr_tpu_torch.ops import matmul as M
     from osr_tpu_torch.ops import quantize_kernels as Q
+    from osr_tpu_torch.ops.topk import block_max
 
+    if maxima:
+        kernel = getattr(M, name + "_blockmax")
+        plain = getattr(M, name + "_plain")
+
+        def plain_both():
+            scores = plain(*args)
+            return scores, block_max(scores)
+
+        return lambda: kernel(*args), plain_both
     if name == "int8_similarity":
         return (lambda: M.int8_similarity(*args),
                 lambda: M.int8_similarity_plain(*args))
@@ -2037,9 +2049,10 @@ def dense_calls(name, args):
     )
 
 
-def dense_bound(name, args):
+def dense_bound(name, args, maxima=False):
     """(operations ms, bytes ms) the card needs at least for one call:
-    each input read once, each output written once; int8 tensor-core
+    each input read once, each output (with ``maxima`` the (B, N / 128)
+    block maxima too) written once; int8 tensor-core
     operations for the products, the f32 rate outside the tensor cores
     for the element-wise kernels (4 operations an element to quantize:
     |x|, max, divide, round; 18 with the stochastic hash and compare; 1 to
@@ -2048,6 +2061,8 @@ def dense_bound(name, args):
         q8, docs, _, _ = args
         b, d, n = q8.shape[0], q8.shape[1], docs.shape[0]
         nbytes = b * d + docs.numel() + 4 * (b + n) + 4 * b * n
+        if maxima:
+            nbytes += 4 * b * -(-n // 128)
         return 2.0 * b * n * d / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     n, d = args[0].shape
     nbytes = 5 * n * d + 4 * n
@@ -2091,10 +2106,13 @@ def dense_library(name, args):
     return None
 
 
-def dense_numbers(name, args, plain_reps=3):
+def dense_numbers(name, args, plain_reps=3, maxima=False):
     """Kernel vs plain (error 0) and the times of one dense kernel on the
-    main path's inputs ``args``; returns its record for the JSON line."""
-    kernel, plain = dense_calls(name, args)
+    main path's inputs ``args``; returns its record for the JSON line.
+    With ``maxima``, K5/K6's launch that also writes the block maxima
+    (scores and maxima each bit-equal to the plain ones), and the
+    scores-only launch's time beside it."""
+    kernel, plain = dense_calls(name, args, maxima)
     err = exact(name, kernel(), plain())
     torch.cuda.synchronize()
     ms = median_ms(kernel, reps=10)
@@ -2112,10 +2130,14 @@ def dense_numbers(name, args, plain_reps=3):
         raw_ms = median_ms(lambda: int_mm_padded(q8, docs), reps=5)
         extra = f" int_mm_only_ms={raw_ms:.4f}"
         del docs
-    t_ops, t_bytes = dense_bound(name, args)
+        if maxima:
+            alone_ms = median_ms(dense_calls(name, args)[0], reps=10)
+            extra += f" scores_only_ms={alone_ms:.4f}"
+    t_ops, t_bytes = dense_bound(name, args, maxima)
     shape = " x ".join(str(a.shape[0]) for a in args[:2] if a.dim() == 2)
     log(
-        f"kernel {name}: {shape} (width {args[0].shape[1]}) ms={ms:.4f} "
+        f"kernel {name}{' with block maxima' if maxima else ''}: {shape} "
+        f"(width {args[0].shape[1]}) ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms="
         f"{'-' if library_ms is None else f'{library_ms:.4f}'}{extra} "
         f"bound_ms={max(t_ops, t_bytes):.4f} max_abs_err={err:.3e}"
@@ -2126,6 +2148,7 @@ def dense_numbers(name, args, plain_reps=3):
         "source": SOURCE_OF[name],
         "replaces": KERNELS[name],
         "launches": 0,
+        "block_maxima": maxima,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2268,11 +2291,15 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
     from osr_tpu_torch.ops import quantize as qz
     from osr_tpu_torch.ops import quantize_kernels as Q
     from osr_tpu_torch.retrieval.engine import (
+        FUSED_MAXIMA_MIN_ROWS,
         DenseSearchEngine,
         dense_kernel_step,
     )
 
     sim = "int4_similarity" if quantization == "int4" else "int8_similarity"
+    # The step takes K5/K6's block maxima at these shapes (dense_kernel_step).
+    fused = (len(doc_ids) >= qz.BLOCK_SELECT_MIN_COLS
+             and DENSE_BATCH >= FUSED_MAXIMA_MIN_ROWS)
     reset_all_launches()
     t0 = time.perf_counter()
     eng = DenseSearchEngine(doc_ids, emb, quantization=quantization,
@@ -2297,6 +2324,9 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
     for k in ("quantize_symmetric", sim):
         if counts[k] == 0:
             fail(f"{label} launched no {k}")
+    if counts[sim + "_blockmax"] != (counts[sim] if fused else 0):
+        fail(f"{label}: {counts[sim + '_blockmax']} of {counts[sim]} "
+             f"{sim} launches wrote block maxima (fused path: {fused})")
     check_dense_results(scores, ids, len(queries), len(doc_ids))
     self_hit = float(np.mean(ids[:, 0] == np.arange(len(queries))))
     log(f"{label}: self-hit rate (top-1 is the query's own row) "
@@ -2333,7 +2363,8 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
     # The kernels at the path's shapes, on the path's own inputs.
     batch = torch.from_numpy(queries[:DENSE_BATCH]).to(dev)
     q8, qs = qz.quantize_symmetric(batch)
-    rows = [dense_numbers(sim, (q8, eng._docs, qs, eng._scales))]
+    rows = [dense_numbers(sim, (q8, eng._docs, qs, eng._scales),
+                          maxima=fused)]
     torch.cuda.empty_cache()
 
     step_ms = median_ms(

@@ -82,8 +82,47 @@
 //   multiple of 16 bytes (N % 4 != 0) has no tensor map: there (kTmaStore
 //   false) the warps store the staging tile with guarded plain stores, one
 //   query row of 128 bytes a box.
+// - Block maxima (the *_blockmax entry points). One tile holds one
+//   128-doc block of each of its 128 queries, so the epilogue can also
+//   write maxima[n0 / 128, b], the largest score of query b over the
+//   tile's real docs. The kernel tests the maxima pointer once, before
+//   its consumers' first tile, and runs one of two compiled walks
+//   (consume_tiles<..., kMaxima>): a null pointer (the plain entry
+//   points') runs the epilogue above and nothing of the reduction. Tested
+//   per tile instead, the branch cost the scores-only launch 1% (10 us at
+//   B = 1, N = 2.68M).
+//   - Values: the f32 scores the tile stores, reduced with NaN kept
+//     (max.NaN), so they equal topk.block_max of the kernel's own scores
+//     bit for bit. A doc >= N counts as -inf, never as the 0 that zero
+//     fill and its zero scale give it; rows >= B are not written.
+//   - Registers: a thread takes the larger of its two docs for each of
+//     its 32 queries (bm[2 j + e]); three xor-shuffle rounds of lanes 16,
+//     8 and 4 apart, each handing over half of what is left (28 shuffles),
+//     leave lane (g, t) the warp's maxima of queries 16 g + 8 (i >> 1) + 2
+//     t + (i & 1), i < 4.
+//   - The 8 warps merge them by shared atomicMax on an int key whose
+//     order is the float's: 128 slots, 512 bytes (a 4 KB array a warp
+//     does not fit beside K5's ring and staging), swizzled so that each
+//     round of a warp's atomics hits 32 banks. Thread q resets slot q
+//     before the epilogue's first barrier and reads it after the second,
+//     once the tile's TMA store is issued: no wait is added to the store,
+//     which still overlaps the next tile's main loop.
+//   - One query tile (B <= 128) leaves each block a long walk of doc tiles
+//     whose epilogues hold up the next tile's loads (the ring holds 5 of a
+//     tile's 6 stages at D = 768), so there the reduction's latency shows:
+//     64 us of K5's 0.96 ms at B = 1, N = 2.68M, more than the block_max
+//     pass it saves. The dense step therefore asks for the maxima only
+//     from a batch size up (retrieval/engine.py:FUSED_MAXIMA_MIN_ROWS).
+//   - Layout (G, B), G = ceil(N / 128), as K2 writes its maxima: a tile's
+//     128 values are 512 contiguous bytes. Written (B, G), the layout the
+//     selection sorts, each value went to a row of its own, and those
+//     scattered stores cost K5 about 1 ms of 9.7 at B = 1,024, N = 2.68M;
+//     the wrapper returns the (B, G) view.
+//   - ptxas (sm_90a, CUDA 12.8): K5 168 registers (96 before the maxima
+//     path), K6 168 (151 before): ptxas's cap for 288 threads, no spills.
 // Shared memory: the ring (K5 160 KB, K6 144 KB) + staging (64 KB) + 1 KB
-// alignment.
+// alignment, and 1.6 KB of static arrays (barriers, scales, the maxima's
+// slots): K5 232,016 of the 232,448 bytes a block may have, K6 215,648.
 // Measured on an H100 and not taken (PERF.md, Findings):
 // query tiles kept in shared memory while a block walks the corpus (a
 // third (K6) or half (K5) of the L2 reads, but slower: the corpus ring
@@ -98,6 +137,7 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -241,6 +281,98 @@ __device__ __forceinline__ void consumer_barrier() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
+// ---- the epilogue's registers and the block maxima --------------------------
+
+// The larger of a and b, NaN if either is (as torch.amax takes it).
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// An int whose signed order is the order of the float with these bits
+// (-0.0 below +0.0, the canonical NaN above +inf); its own inverse.
+__device__ __forceinline__ int ordered(int bits) {
+  return bits >= 0 ? bits : bits ^ 0x7fffffff;
+}
+
+// Query q's slot of the maxima array: bits 0 and 3 of q flipped by bits 5
+// and 6, so that one round of a warp's atomics (queries 16 g + 2 t + c, c
+// fixed) and the 32 queries a warp reads each hit 32 banks.
+__device__ __forceinline__ int max_slot(int q) {
+  return q ^ ((q >> 5) & 1) ^ (((q >> 6) & 1) << 3);
+}
+
+// One round of the warp's reduce-scatter: lanes kHalf apart swap the
+// halves of m[0, 2 kHalf) that the other keeps; each leaves the max of
+// its kept half in m[0, kHalf) (the upper lane's stands for entries
+// [kHalf, 2 kHalf) of before).
+template <int kHalf>
+__device__ __forceinline__ void fold(float (&m)[32], int lane) {
+  const bool up = (lane & kHalf) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = up ? m[i] : m[i + kHalf];
+    const float keep = up ? m[i + kHalf] : m[i];
+    m[i] = fmax_nan(keep, __shfl_xor_sync(0xffffffffu, send, kHalf));
+  }
+}
+
+// This thread's 64 accumulators, converted and scaled, into the staging
+// tile: acc[4 j + 2 h + e] is (doc row0 + 8 h, query 8 j + 2 t + e), at box
+// doc / 32, row query, 16-byte chunk ((doc % 32) / 4) ^ (query & 7). With
+// kMaxima also bm[2 j + e], the larger of the two, a doc >= live_docs
+// counted as -inf.
+template <bool kMaxima>
+__device__ __forceinline__ void stage_tile(const int (&acc)[64],
+                                           uint8_t* staging,
+                                           const float* s_qs,
+                                           const float* s_ds, int row0,
+                                           int lane, int live_docs,
+                                           float (&bm)[32]) {
+  const int t = lane & 3;
+  const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 q2 = *reinterpret_cast<const float2*>(&s_qs[8 * j + 2 * t]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int doc = row0 + 8 * h;
+        const int ql = 8 * j + 2 * t + e;
+        const float v = __fmul_rn(
+            __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
+                      e ? q2.y : q2.x),
+            dsc[h]);
+        *reinterpret_cast<float*>(
+            staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
+            ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
+        if constexpr (kMaxima) {
+          const float m = doc < live_docs ? v : -CUDART_INF_F;
+          bm[2 * j + e] = h ? fmax_nan(bm[2 * j + e], m) : m;
+        }
+      }
+  }
+}
+
+// The warp's maxima from its threads' bm (stage_tile), merged into the
+// block's slots: three fold rounds leave lane (g, t) those of queries 16 g
+// + 8 (i >> 1) + 2 t + (i & 1) in bm[i], i < 4.
+__device__ __forceinline__ void merge_maxima(float (&bm)[32], int lane,
+                                             int* s_max) {
+  fold<16>(bm, lane);
+  fold<8>(bm, lane);
+  fold<4>(bm, lane);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = 16 * g + 8 * (i >> 1) + 2 * t + (i & 1);
+    atomicMax(&s_max[max_slot(q)], ordered(__float_as_int(bm[i])));
+  }
+}
+
 // ---- the kernel -------------------------------------------------------------
 
 // Stage it (the block's running count; k-th of its tile) of a consumer
@@ -289,10 +421,114 @@ __device__ __forceinline__ void consume_stage(int it, int k, uint8_t* smem,
   if (k > 0 && lane == 0) mbar_arrive(&empty_bar[(it - 1) % Geo::kStages]);
 }
 
+// The consumers' walk over the block's tiles: main loop, then the
+// epilogue, with (kMaxima) or without the block maxima. The accumulators
+// are written by each tile's first product (scale-d = 0) and read by its
+// epilogue, never written by other instructions: those would make ptxas
+// serialize the wgmma pipeline.
+template <bool kInt4, bool kTmaStore, bool kMaxima>
+__device__ __forceinline__ void consume_tiles(
+    const CUtensorMap* to, const float* __restrict__ qs,
+    const float* __restrict__ ds, float* __restrict__ out,
+    float* __restrict__ maxima, int B, int N, int n_chunks, int n_qtiles,
+    int n_tiles, uint8_t* smem, uint8_t* staging, uint64_t* full_bar,
+    uint64_t* empty_bar, float* s_qs, float* s_ds, int* s_max, int tid) {
+  using Geo = Geometry<kInt4>;
+  const int wg = tid >> 7;  // warpgroup: docs [64 wg, 64 wg + 64)
+  const int w = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int row0 = 64 * wg + 16 * w + (lane >> 2);  // its docs: +0, +8
+  int acc[64];
+  uint32_t frag[2][4][4];  // K6's A fragments, double buffered
+
+  int base = 0;  // the block's running stage count at this tile's start
+  for (int tile = blockIdx.x; tile < n_tiles;
+       tile += gridDim.x, base += n_chunks) {
+    const int m0 = (tile % n_qtiles) * kTileM;
+    const int n0 = (tile / n_qtiles) * kTileN;
+    // This thread's scale for the epilogue (query m0 + tid, or doc n0 +
+    // tid - 128), loaded now so that its latency hides under the main loop.
+    const int si = tid < kTileM ? m0 + tid : n0 + tid - kTileM;
+    const float scale = tid < kTileM ? (si < B ? qs[si] : 0.0f)
+                                     : (si < N ? ds[si] : 0.0f);
+    int k = 0;
+    for (; k + 1 < n_chunks; k += 2) {  // two stages, one per buffer
+      consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
+                           lane, frag[0], acc);
+      consume_stage<kInt4>(base + k + 1, k + 1, smem, full_bar, empty_bar,
+                           wg, row0, lane, frag[1], acc);
+    }
+    if (k < n_chunks) {
+      consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
+                           lane, frag[0], acc);
+    }
+    wgmma_wait<0>();
+    if (lane == 0) {
+      mbar_arrive(&empty_bar[(base + n_chunks - 1) % Geo::kStages]);
+    }
+
+    // Epilogue. The scales of this tile's queries and docs go to shared
+    // memory (the previous epilogue's reads of them ended before its
+    // second barrier), and thread q resets maxima slot q (which only it
+    // read, after the previous tile's second barrier). The staging tile is
+    // free once the previous tile's store has read it (TMA) or every warp
+    // has stored it (plain).
+    if (tid < kTileM) {
+      s_qs[tid] = scale;
+      if constexpr (kMaxima) {
+        s_max[max_slot(tid)] = ordered(__float_as_int(-CUDART_INF_F));
+      }
+    } else {
+      s_ds[tid - kTileM] = scale;
+    }
+    if (kTmaStore && tid == 0) bulk_wait_read<0>();
+    consumer_barrier();
+    float bm[32];  // this thread's block maxima (stage_tile)
+    stage_tile<kMaxima>(acc, staging, s_qs, s_ds, row0, lane, N - n0, bm);
+    if constexpr (kMaxima) merge_maxima(bm, lane, s_max);
+    if constexpr (kTmaStore) fence_proxy_async();
+    consumer_barrier();
+    if constexpr (kTmaStore) {
+      if (tid == 0) {
+#pragma unroll
+        for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
+          if (n0 + kOutBoxCols * i < N) {
+            tma_store_2d(to, staging + i * kOutBoxBytes,
+                         n0 + kOutBoxCols * i, m0);
+          }
+        }
+        bulk_commit();
+      }
+    } else {
+      // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of box
+      // x (conflict free) and writes it: 128 contiguous bytes a box.
+      const int wp = tid >> 5;
+      for (int i = 0; i < kTileM / 8; ++i) {
+        const int ql = wp + 8 * i;
+        const int mq = m0 + ql;
+        if (mq >= B) break;
+#pragma unroll
+        for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
+          const int n = n0 + kOutBoxCols * x + lane;
+          const float v = *reinterpret_cast<const float*>(
+              staging + x * kOutBoxBytes + ql * 128 +
+              (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
+          if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
+        }
+      }
+    }
+    if (kMaxima && tid < kTileM && m0 + tid < B) {
+      maxima[static_cast<size_t>(n0 / kTileN) * B + m0 + tid] =
+          __int_as_float(ordered(s_max[max_slot(tid)]));
+    }
+  }
+}
+
 // tq:  K5: (B, W) int8 queries; K6: (B, 2 W); box kChunkBytes x 128 rows
 // td:  (N, W) corpus bytes; box kChunkBytes x 128 rows
 // to:  (B, N) f32 output; box 32 x 128, 128B swizzle (kTmaStore only)
-// qs (B,), ds (N,) f32 scales; out (B, N) f32 (the plain stores)
+// qs (B,), ds (N,) f32 scales; out (B, N) f32 (the plain stores);
+// maxima (ceil(N / 128), B) f32 block maxima, or null for none
 template <bool kInt4, bool kTmaStore>
 __global__ void __launch_bounds__(kThreads, 1)
     similarity_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -300,7 +536,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap to,
                             const float* __restrict__ qs,
                             const float* __restrict__ ds,
-                            float* __restrict__ out, int B, int N, int W,
+                            float* __restrict__ out,
+                            float* __restrict__ maxima, int B, int N, int W,
                             int n_qtiles, int n_tiles) {
   using Geo = Geometry<kInt4>;
   extern __shared__ uint8_t smem_raw[];
@@ -308,6 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ __align__(8) uint64_t empty_bar[Geo::kStages];
   __shared__ __align__(16) float s_qs[kTileM];
   __shared__ float s_ds[kTileN];
+  __shared__ int s_max[kTileM];  // the block maxima's slots (max_slot)
   // Offset, not cast, to the aligned base: the compiler then still knows
   // the pointer is shared memory.
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -354,115 +592,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // Consumers. The accumulators are written by each tile's first product
-  // (scale-d = 0) and read by its epilogue, never written by other
-  // instructions: those would make ptxas serialize the wgmma pipeline.
-  const int wg = tid >> 7;  // warpgroup: docs [64 wg, 64 wg + 64)
-  const int w = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = 64 * wg + 16 * w + g;  // this thread's docs: +0, +8
-  int acc[64];
-  uint32_t frag[2][4][4];  // K6's A fragments, double buffered
-
-  int base = 0;  // the block's running stage count at this tile's start
-  for (int tile = blockIdx.x; tile < n_tiles;
-       tile += gridDim.x, base += n_chunks) {
-    const int m0 = (tile % n_qtiles) * kTileM;
-    const int n0 = (tile / n_qtiles) * kTileN;
-    // This thread's scale for the epilogue (query m0 + tid, or doc n0 +
-    // tid - 128), loaded now so that its latency hides under the main loop.
-    const int si = tid < kTileM ? m0 + tid : n0 + tid - kTileM;
-    const float scale = tid < kTileM ? (si < B ? qs[si] : 0.0f)
-                                     : (si < N ? ds[si] : 0.0f);
-    int k = 0;
-    for (; k + 1 < n_chunks; k += 2) {  // two stages, one per buffer
-      consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
-                           lane, frag[0], acc);
-      consume_stage<kInt4>(base + k + 1, k + 1, smem, full_bar, empty_bar,
-                           wg, row0, lane, frag[1], acc);
-    }
-    if (k < n_chunks) {
-      consume_stage<kInt4>(base + k, k, smem, full_bar, empty_bar, wg, row0,
-                           lane, frag[0], acc);
-    }
-    wgmma_wait<0>();
-    if (lane == 0) {
-      mbar_arrive(&empty_bar[(base + n_chunks - 1) % Geo::kStages]);
-    }
-
-    // Epilogue. The scales of this tile's queries and docs go to shared
-    // memory (the previous epilogue's reads of them ended before its
-    // second barrier). The staging tile is free once the previous tile's
-    // store has read it (TMA) or every warp has stored it (plain).
-    if (tid < kTileM) {
-      s_qs[tid] = scale;
-    } else {
-      s_ds[tid - kTileM] = scale;
-    }
-    if (kTmaStore && tid == 0) bulk_wait_read<0>();
-    consumer_barrier();
-    // acc[4 j + 2 h + e] is (doc row0 + 8 h, query 8 j + 2 t + e): box
-    // doc / 32, row query, 16-byte chunk ((doc % 32) / 4) ^ (query & 7).
-    const float dsc[2] = {s_ds[row0], s_ds[row0 + 8]};
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float2 q2 =
-          *reinterpret_cast<const float2*>(&s_qs[8 * j + 2 * t]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int doc = row0 + 8 * h;
-          const int ql = 8 * j + 2 * t + e;
-          const float v = __fmul_rn(
-              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
-                        e ? q2.y : q2.x),
-              dsc[h]);
-          *reinterpret_cast<float*>(
-              staging + (doc >> 5) * kOutBoxBytes + ql * 128 +
-              ((((doc & 31) >> 2) ^ (ql & 7)) << 4) + ((doc & 3) << 2)) = v;
-        }
-    }
-    if constexpr (kTmaStore) fence_proxy_async();
-    consumer_barrier();
-    if constexpr (kTmaStore) {
-      if (tid == 0) {
-#pragma unroll
-        for (int i = 0; i < kTileN / kOutBoxCols; ++i) {
-          if (n0 + kOutBoxCols * i < N) {
-            tma_store_2d(&to, staging + i * kOutBoxBytes,
-                         n0 + kOutBoxCols * i, m0);
-          }
-        }
-        bulk_commit();
-      }
-    } else {
-      // Warp wp stores queries wp + 8 i; lane l reads doc 32 x + l of box
-      // x (conflict free) and writes it: 128 contiguous bytes a box.
-      const int wp = tid >> 5;
-      for (int i = 0; i < kTileM / 8; ++i) {
-        const int ql = wp + 8 * i;
-        const int mq = m0 + ql;
-        if (mq >= B) break;
-#pragma unroll
-        for (int x = 0; x < kTileN / kOutBoxCols; ++x) {
-          const int n = n0 + kOutBoxCols * x + lane;
-          const float v = *reinterpret_cast<const float*>(
-              staging + x * kOutBoxBytes + ql * 128 +
-              (((lane >> 2) ^ (ql & 7)) << 4) + ((lane & 3) << 2));
-          if (n < N) out[static_cast<size_t>(mq) * N + n] = v;
-        }
-      }
-    }
+  // Consumers. Each path is compiled on its own, so a launch without
+  // maxima runs the scores-only epilogue's code and nothing of the other.
+  if (maxima) {
+    consume_tiles<kInt4, kTmaStore, true>(&to, qs, ds, out, maxima, B, N,
+                                          n_chunks, n_qtiles, n_tiles, smem,
+                                          staging, full_bar, empty_bar, s_qs,
+                                          s_ds, s_max, tid);
+  } else {
+    consume_tiles<kInt4, kTmaStore, false>(&to, qs, ds, out, nullptr, B, N,
+                                           n_chunks, n_qtiles, n_tiles, smem,
+                                           staging, full_bar, empty_bar,
+                                           s_qs, s_ds, s_max, tid);
   }
   if (kTmaStore && tid == 0) bulk_wait_all();
 }
 
 template <bool kInt4, bool kTmaStore>
 int launch(const void* q, const void* d, const void* qs, const void* ds,
-           void* out, int B, int N, int W, cudaStream_t stream) {
+           void* out, void* maxima, int B, int N, int W,
+           cudaStream_t stream) {
   using Geo = Geometry<kInt4>;
   const int n_qtiles = (B + kTileM - 1) / kTileM;
   const int n_ntiles = (N + kTileN - 1) / kTileN;
@@ -498,8 +647,9 @@ int launch(const void* q, const void* d, const void* qs, const void* ds,
   similarity_wgmma_kernel<kInt4, kTmaStore>
       <<<grid, kThreads, Geo::kSmemBytes, stream>>>(
           tq, td, to, static_cast<const float*>(qs),
-          static_cast<const float*>(ds), static_cast<float*>(out), B, N, W,
-          n_qtiles, static_cast<int>(tiles));
+          static_cast<const float*>(ds), static_cast<float*>(out),
+          static_cast<float*>(maxima), B, N, W, n_qtiles,
+          static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,15 +659,15 @@ bool aligned16(const void* p) {
 
 template <bool kInt4>
 int similarity(const void* q, const void* d, const void* qs, const void* ds,
-               void* out, int B, int N, int W, void* stream) {
+               void* out, void* maxima, int B, int N, int W, void* stream) {
   if (B < 0 || N < 0 || W <= 0 || W % 16 != 0 || !aligned16(q) ||
       !aligned16(d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return N % 4 == 0 && aligned16(out)
-             ? launch<kInt4, true>(q, d, qs, ds, out, B, N, W, s)
-             : launch<kInt4, false>(q, d, qs, ds, out, B, N, W, s);
+             ? launch<kInt4, true>(q, d, qs, ds, out, maxima, B, N, W, s)
+             : launch<kInt4, false>(q, d, qs, ds, out, maxima, B, N, W, s);
 }
 
 }  // namespace
@@ -529,7 +679,17 @@ int similarity(const void* q, const void* d, const void* qs, const void* ds,
 extern "C" int osr_similarity_i8(const void* q, const void* d,
                                  const void* qs, const void* ds, void* out,
                                  int B, int N, int W, void* stream) {
-  return similarity<false>(q, d, qs, ds, out, B, N, W, stream);
+  return similarity<false>(q, d, qs, ds, out, nullptr, B, N, W, stream);
+}
+
+// K5 with its block maxima: as osr_similarity_i8, and maxima, (ceil(N /
+// 128), B) f32, receives the maximum of each 128-column block of each row
+// of out: maxima[g, b] = max of out[b, 128 g .. 128 g + 127].
+extern "C" int osr_similarity_i8_blockmax(const void* q, const void* d,
+                                          const void* qs, const void* ds,
+                                          void* out, void* maxima, int B,
+                                          int N, int W, void* stream) {
+  return similarity<false>(q, d, qs, ds, out, maxima, B, N, W, stream);
 }
 
 // K6: (B, N) f32 similarity of a packed int4 corpus. q is the (B, 2 W)
@@ -538,7 +698,15 @@ extern "C" int osr_similarity_i8(const void* q, const void* d,
 extern "C" int osr_similarity_i4(const void* q, const void* d,
                                  const void* qs, const void* ds, void* out,
                                  int B, int N, int W, void* stream) {
-  return similarity<true>(q, d, qs, ds, out, B, N, W, stream);
+  return similarity<true>(q, d, qs, ds, out, nullptr, B, N, W, stream);
+}
+
+// K6 with its block maxima, as osr_similarity_i8_blockmax.
+extern "C" int osr_similarity_i4_blockmax(const void* q, const void* d,
+                                          const void* qs, const void* ds,
+                                          void* out, void* maxima, int B,
+                                          int N, int W, void* stream) {
+  return similarity<true>(q, d, qs, ds, out, maxima, B, N, W, stream);
 }
 
 // Dynamic shared memory a launch of K6 (int4 != 0) or K5 requests, in

@@ -147,6 +147,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         for entry in (lib.osr_similarity_i8, lib.osr_similarity_i4):
             entry.restype = ci
             entry.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        for entry in (lib.osr_similarity_i8_blockmax,
+                      lib.osr_similarity_i4_blockmax):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.osr_similarity_wgmma_smem_bytes.restype = ci
         lib.osr_similarity_wgmma_smem_bytes.argtypes = [ci]
     elif name == "quantize":

@@ -12,6 +12,11 @@ Wrappers, each with its plain version beside it:
   ``osr_tpu/ops/pallas/matmul.py:_kernel`` (via ``int8_similarity_pallas``).
 - :func:`int4_similarity` launches K6. Replaces ``_kernel_i4`` (via
   ``int4_similarity_pallas``).
+- :func:`int8_similarity_blockmax` and :func:`int4_similarity_blockmax`
+  launch the same kernels with their block maxima: K5/K6's epilogue also
+  writes the (B, G) maximum of each 128-column block, G = ceil(N / 128),
+  what ``topk.block_max`` takes of the scores, so the exact selection
+  (``topk.block_topk_from_max``) never re-reads the (B, N) matrix for it.
 
 Both kernels are one template in ``csrc/similarity_wgmma.cu``, on the
 corpus dtype: one persistent block per SM walks the (128 x 128) output
@@ -36,18 +41,24 @@ The plain versions compute the integer products in float64, exact while
 the sums stay below 2^53 (PyTorch has no integer matrix product on CUDA).
 A wrapper takes the plain version only for tensors on the CPU; on a CUDA
 tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
-launches (plain calls are not counted).
+launches (plain calls are not counted): ``int8_similarity`` every K5
+launch, ``int8_similarity_blockmax`` those of them that wrote the block
+maxima too (K6 likewise).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+
+from osr_tpu_torch.ops.topk import block_max
 
 LAUNCHES: Dict[str, int] = {
     "int8_similarity": 0,  # K5
     "int4_similarity": 0,  # K6
+    "int8_similarity_blockmax": 0,  # K5 launches that wrote block maxima
+    "int4_similarity_blockmax": 0,  # K6 likewise
 }
 # Operand copies the K5 and K6 wrappers made (int8_kernel_operands,
 # int4_kernel_operands): the padded corpus, and the padded (K6: placed)
@@ -195,19 +206,27 @@ def int4_kernel_operands(q8: torch.Tensor, d_packed: torch.Tensor):
     return q8, d_packed, hp
 
 
-def _similarity(q8, docs, q_scales, d_scales, int4: bool) -> torch.Tensor:
+def _similarity(q8, docs, q_scales, d_scales, int4: bool, blockmax: bool):
+    """The (B, N) scores, and with ``blockmax`` their (B, G) block
+    maxima beside them."""
     name = "int4_similarity" if int4 else "int8_similarity"
     if q8.device.type == "cpu":
         plain = int4_similarity_plain if int4 else int8_similarity_plain
-        return plain(q8, docs, q_scales, d_scales)
+        out = plain(q8, docs, q_scales, d_scales)
+        return (out, block_max(out)) if blockmax else out
     if q8.device.type != "cuda":
         raise ValueError(f"no kernel for device {q8.device}")
     _check_operands(q8, docs, q_scales, d_scales, int4)
-    out = torch.empty(
-        (q8.shape[0], docs.shape[0]), dtype=torch.float32, device=q8.device
+    b, n = q8.shape[0], docs.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=q8.device)
+    # The kernel writes the maxima (G, B), a tile's 128 queries contiguous;
+    # the caller gets the (B, G) view.
+    maxima = (
+        torch.empty((-(-n // 128), b), dtype=torch.float32, device=q8.device)
+        if blockmax else None
     )
     if out.numel() == 0:
-        return out
+        return (out, maxima.T) if blockmax else out
     from osr_tpu_torch.ops import _build
 
     with torch.cuda.device(q8.device):
@@ -215,17 +234,20 @@ def _similarity(q8, docs, q_scales, d_scales, int4: bool) -> torch.Tensor:
         lib = _build.library("similarity_wgmma")
         if int4:
             q, d, width = int4_kernel_operands(q8, docs)
-            entry = lib.osr_similarity_i4
         else:
             q, d, width = int8_kernel_operands(q8, docs)
-            entry = lib.osr_similarity_i8
-        code = entry(
-            q.data_ptr(), d.data_ptr(), q_scales.data_ptr(),
-            d_scales.data_ptr(), out.data_ptr(), q8.shape[0], docs.shape[0],
-            width, stream,
-        )
+        ptrs = [q.data_ptr(), d.data_ptr(), q_scales.data_ptr(),
+                d_scales.data_ptr(), out.data_ptr()]
+        entry = "osr_similarity_" + ("i4" if int4 else "i8")
+        if blockmax:
+            entry += "_blockmax"
+            ptrs.append(maxima.data_ptr())
+        code = getattr(lib, entry)(*ptrs, b, n, width, stream)
         _build.check(lib, code, name)
     LAUNCHES[name] += 1
+    if blockmax:
+        LAUNCHES[name + "_blockmax"] += 1
+        return out, maxima.T
     return out
 
 
@@ -236,7 +258,7 @@ def int8_similarity(
     d_scales: torch.Tensor,  # (N,) f32
 ) -> torch.Tensor:
     """(B, N) f32 dequantized similarity of an int8 corpus (K5 on CUDA)."""
-    return _similarity(q8, d8, q_scales, d_scales, int4=False)
+    return _similarity(q8, d8, q_scales, d_scales, int4=False, blockmax=False)
 
 
 def int4_similarity(
@@ -246,4 +268,29 @@ def int4_similarity(
     d_scales: torch.Tensor,  # (N,) f32
 ) -> torch.Tensor:
     """(B, N) f32 dequantized similarity of an int4 corpus (K6 on CUDA)."""
-    return _similarity(q8, d_packed, q_scales, d_scales, int4=True)
+    return _similarity(q8, d_packed, q_scales, d_scales, int4=True,
+                       blockmax=False)
+
+
+def int8_similarity_blockmax(
+    q8: torch.Tensor,  # (B, D) int8
+    d8: torch.Tensor,  # (N, D) int8
+    q_scales: torch.Tensor,  # (B,) f32
+    d_scales: torch.Tensor,  # (N,) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((B, N) f32 similarity, (B, G) f32 maxima of its 128-column
+    blocks), G = ceil(N / 128): K5 writing both on CUDA (the maxima a
+    transposed view of the kernel's (G, B) array); on the CPU the plain
+    scores and ``topk.block_max`` of them."""
+    return _similarity(q8, d8, q_scales, d_scales, int4=False, blockmax=True)
+
+
+def int4_similarity_blockmax(
+    q8: torch.Tensor,  # (B, D) int8
+    d_packed: torch.Tensor,  # (N, D/2) uint8, signed nibbles, block-packed
+    q_scales: torch.Tensor,  # (B,) f32
+    d_scales: torch.Tensor,  # (N,) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`int8_similarity_blockmax` of an int4 corpus (K6 on CUDA)."""
+    return _similarity(q8, d_packed, q_scales, d_scales, int4=True,
+                       blockmax=True)

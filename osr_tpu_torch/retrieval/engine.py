@@ -74,6 +74,7 @@ from osr_tpu_torch.ops.bm25 import (
     fused_search_extract,
     merge_chunks,
 )
+from osr_tpu_torch.ops.topk import block_topk_from_max
 from osr_tpu_torch.retrieval.encoding import (
     EncodedBatch,
     QueryEncoder,
@@ -827,21 +828,31 @@ DENSE_QUANTIZATIONS = (
     "symmetric", "asymmetric", "int4", "int4_grouped", "none"
 )
 KERNEL_QUANTIZATIONS = ("symmetric", "int4")  # the modes K5/K6 score
+# The batch size from which K5/K6's block maxima beat the block_max pass
+# over their scores (H100, N = 2.68M: the fused step is slower at B = 1, even
+# at 2, faster from 4 on; PERF.md, Findings): below it the fused reduction's
+# latency in each tile's epilogue costs more than it saves.
+FUSED_MAXIMA_MIN_ROWS = 4
 
 
 def dense_kernel_scores(
     q: torch.Tensor,  # (B, D) f32 queries
     docs: torch.Tensor,  # (N, D) int8, or (N, D/2) uint8 int4-packed
     scales: torch.Tensor,  # (N,) f32
-) -> torch.Tensor:
+    blockmax: bool = False,
+):
     """The (B, N) f32 scores of :func:`dense_kernel_step`: K7 on the
-    queries, then K5 (int8 corpus) or K6 (int4)."""
+    queries, then K5 (int8 corpus) or K6 (int4). With ``blockmax``, the
+    scores and their (B, ceil(N / 128)) block maxima from the same
+    launch."""
     q8, qs = qz.quantize_symmetric(q)
-    similarity = (
-        matmul_ops.int4_similarity
-        if docs.dtype == torch.uint8
-        else matmul_ops.int8_similarity
-    )
+    int4 = docs.dtype == torch.uint8
+    if blockmax:
+        similarity = (matmul_ops.int4_similarity_blockmax if int4
+                      else matmul_ops.int8_similarity_blockmax)
+    else:
+        similarity = (matmul_ops.int4_similarity if int4
+                      else matmul_ops.int8_similarity)
     return similarity(q8, docs, qs, scales)
 
 
@@ -854,13 +865,27 @@ def dense_kernel_step(
     """One dense batch through the kernels (counterpart of ``osr_tpu``'s
     ``_pallas_dense_step``): K7 quantizes the queries, K5 (int8 corpus) or
     K6 (int4, chosen by the corpus dtype) scores them, and the exact
-    block-pruned selection takes the top k. Returns ((B, k') f32 scores,
-    (B, k') int32 rows), k' = min(k, N).
+    selection takes the top k. Returns ((B, k') f32 scores, (B, k') int32
+    rows), k' = min(k, N).
+
+    At ``BLOCK_SELECT_MIN_COLS`` (2,048) documents and more, the crossover
+    of ``ops/quantize.py:_select_topk``, and ``FUSED_MAXIMA_MIN_ROWS``
+    queries and more, K5/K6 also write the maximum of each 128-document
+    block from their epilogue (``int8_similarity_blockmax``), and the
+    block-pruned selection takes them (``block_topk_from_max``): the result
+    is ``block_topk``'s, ties included, without its re-read of the (B, N)
+    scores. Otherwise the scores-only kernel and ``_select_topk``.
 
     The kernels mask ragged B and N, so nothing is padded: the (B, N)
     similarity covers exactly the real rows (a zero-scale padding row
     would score 0 and could displace a document scoring below 0)."""
-    return qz._select_topk(dense_kernel_scores(q, docs, scales), k)
+    n = docs.shape[0]
+    if n < qz.BLOCK_SELECT_MIN_COLS or q.shape[0] < FUSED_MAXIMA_MIN_ROWS:
+        return qz._select_topk(dense_kernel_scores(q, docs, scales), k)
+    scores, maxima = dense_kernel_scores(q, docs, scales, blockmax=True)
+    # The kernel's maxima are a (G, B) array's transposed view; one copy
+    # here, where the sort would make its own two.
+    return block_topk_from_max(scores, maxima.contiguous(), k=min(k, n))
 
 
 def _dense_backend(backend: str, quantization: str, device) -> str:
@@ -1058,6 +1083,8 @@ class DenseSearchEngine:
     def _step(self, q, docs, scales, mins, k: int):
         """One batch against one set of rows: ((B, k') f32, (B, k')
         int32) on the device."""
+        if self.backend == "cuda":
+            return dense_kernel_step(q, docs, scales, k)
         return qz._select_topk(self._scores(q, docs, scales, mins), k)
 
     def dispatch_vectors(self, query_vectors, top_k: int):

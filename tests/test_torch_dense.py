@@ -31,7 +31,13 @@ from osr_tpu_torch.index.dense import synthetic_corpus_embeddings
 from osr_tpu_torch.ops import matmul as tmm
 from osr_tpu_torch.ops import quantize as tqz
 from osr_tpu_torch.ops import quantize_kernels as tqk
-from osr_tpu_torch.retrieval.engine import DenseSearchEngine, dense_kernel_step
+from osr_tpu_torch.ops.topk import block_topk, topk
+from osr_tpu_torch.retrieval.engine import (
+    FUSED_MAXIMA_MIN_ROWS,
+    DenseSearchEngine,
+    dense_kernel_scores,
+    dense_kernel_step,
+)
 
 RTOL = 1e-6
 F32_ATOL = 3e-5
@@ -80,6 +86,30 @@ def _corpus(name, dim=256, seed=11):
     n, b = CORPORA[name]
     emb = synthetic_corpus_embeddings(n + b, dim=dim, seed=seed)
     return [f"d{i}" for i in range(n)], emb[:n], emb[n:]
+
+
+def _tied_corpus(n, distinct=20, dim=256, queries=70, seed=0):
+    """n rows drawn from ``distinct`` rows, so every top-k of fewer than
+    n / distinct rows is made of ties (the k-th score repeats past the
+    k-th place); and the queries."""
+    rng = np.random.RandomState(seed)
+    base = synthetic_corpus_embeddings(distinct, dim=dim, seed=seed)
+    return (base[rng.randint(0, distinct, n)],
+            synthetic_corpus_embeddings(queries, dim=dim, seed=seed + 1))
+
+
+# dense_kernel_step's corpora against osr_tpu: CORPORA's (the block-pruned
+# one's 2,200 docs and 30 queries take K5/K6's block maxima, 30 >=
+# FUSED_MAXIMA_MIN_ROWS), and "tied": 2,200 rows drawn from 20, so that
+# every top-7 is made of ties past the 7th place.
+STEP_CORPORA = sorted(CORPORA) + ["tied"]
+
+
+def _step_corpus(name):
+    if name != "tied":
+        return _corpus(name)
+    emb, queries = _tied_corpus(2_200, queries=30, seed=11)
+    return [f"d{i}" for i in range(len(emb))], emb, queries
 
 
 def _same(got, want, atol=None):
@@ -132,14 +162,17 @@ def test_other_quantizations_match_osr_tpu(jax_ref, quantization):
                           device="cpu", backend="cuda")
 
 
+@pytest.mark.parametrize("corpus", STEP_CORPORA)
 @pytest.mark.parametrize("quantization", ["symmetric", "int4"])
-def test_kernel_step_matches_pallas_dense_step(jax_ref, quantization):
+def test_kernel_step_matches_pallas_dense_step(jax_ref, quantization, corpus):
     """dense_kernel_step (the kernel path: K7, K5/K6, selection) on CPU
     tensors, where each wrapper runs its plain version, against osr_tpu's
-    one-dispatch Pallas step over its zero-scale padded rows."""
+    one-dispatch Pallas step over its zero-scale padded rows: the
+    scores-only selection below 2,048 docs, the selection from the
+    kernels' block maxima at 2,200 (one blockmax call), ties included."""
     import jax.numpy as jnp
 
-    doc_ids, docs, queries = _corpus("padded")
+    doc_ids, docs, queries = _step_corpus(corpus)
     with pallas_interpret():
         jeng = jax_ref.DenseSearchEngine(
             doc_ids, docs, quantization=quantization, backend="pallas"
@@ -151,13 +184,53 @@ def test_kernel_step_matches_pallas_dense_step(jax_ref, quantization):
     rows = np.asarray(jeng._docs)[: len(doc_ids)]
     scales = np.asarray(jeng._scales)[: len(doc_ids)]
     before = {**tqk.LAUNCHES, **tmm.LAUNCHES}
-    vals, ids = dense_kernel_step(
-        torch.from_numpy(queries), torch.from_numpy(rows),
-        torch.from_numpy(scales), 7,
-    )
+    name = ("int4" if quantization == "int4"
+            else "int8") + "_similarity_blockmax"
+    with mock.patch.object(tmm, name, wraps=getattr(tmm, name)) as fused:
+        vals, ids = dense_kernel_step(
+            torch.from_numpy(queries), torch.from_numpy(rows),
+            torch.from_numpy(scales), 7,
+        )
+    assert fused.call_count == int(len(doc_ids) >= tqz.BLOCK_SELECT_MIN_COLS)
     assert {**tqk.LAUNCHES, **tmm.LAUNCHES} == before  # plain on the CPU
+    if corpus == "tied":  # the 7th score repeats past the 7th place
+        scores = dense_kernel_scores(torch.from_numpy(queries),
+                                     torch.from_numpy(rows),
+                                     torch.from_numpy(scales))
+        assert (scores == vals[:, -1:]).sum(1).min() > 7
     _same((vals.numpy(), ids.numpy()),
           (packed[:, :7], packed[:, 7:].astype(np.int32)))
+
+
+QUANTIZE = {"symmetric": tqz.quantize_symmetric,
+            "int4": tqz.quantize_symmetric_int4}
+
+
+@pytest.mark.parametrize(
+    "b", [FUSED_MAXIMA_MIN_ROWS - 1, FUSED_MAXIMA_MIN_ROWS, 70])
+@pytest.mark.parametrize("quantization", sorted(QUANTIZE))
+@pytest.mark.parametrize("n", [1_000, 2_047, 2_048, 5_000])
+def test_kernel_step_on_cpu_tensors_unchanged(quantization, n, b):
+    """dense_kernel_step on CPU tensors (the wrappers' plain twins) gives
+    the rows and scores of the selection over the scores-only path,
+    ``_select_topk``, below the 2,048-document and the batch-size
+    crossovers and above both (only there through the blockmax wrapper),
+    with ties at the k-th place, and launches (counts) nothing."""
+    emb, queries = _tied_corpus(n, queries=b, seed=n)
+    docs, scales = QUANTIZE[quantization](torch.from_numpy(emb))
+    q = torch.from_numpy(queries)
+    before = dict(tmm.LAUNCHES)
+    name = ("int4" if quantization == "int4"
+            else "int8") + "_similarity_blockmax"
+    with mock.patch.object(tmm, name, wraps=getattr(tmm, name)) as fused:
+        got = dense_kernel_step(q, docs, scales, 25)
+    assert fused.call_count == int(
+        n >= tqz.BLOCK_SELECT_MIN_COLS and b >= FUSED_MAXIMA_MIN_ROWS)
+    assert tmm.LAUNCHES == before
+    scores = dense_kernel_scores(q, docs, scales)
+    want = tqz._select_topk(scores, 25)
+    assert (scores == want[0][:, -1:]).sum(1).min() > 25  # the planted ties
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_search_dicts_match_osr_tpu(jax_ref):
@@ -426,3 +499,44 @@ def test_kernel_engine_matches_plain_engine_on_card(
     want = plain.search_vectors(emb[n:], top_k=50)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b", [1, FUSED_MAXIMA_MIN_ROWS - 1, FUSED_MAXIMA_MIN_ROWS, 70])
+@pytest.mark.parametrize("quantization", ["symmetric", "int4"])
+@pytest.mark.parametrize("n", [2_047, 2_048, 5_000])
+def test_kernel_step_blockmax_matches_block_topk_on_card(
+    cuda, quantization, n, b
+):
+    """From 2,048 documents and FUSED_MAXIMA_MIN_ROWS queries on,
+    dense_kernel_step and the engine's search take K5/K6's block maxima
+    (one blockmax launch a step, none otherwise) and return exactly
+    ``block_topk`` of the kernel's scores, the planted ties at the k-th
+    place in row order."""
+    emb, queries = _tied_corpus(n, queries=b, seed=n)
+    doc_ids = [f"d{i}" for i in range(n)]
+    eng = DenseSearchEngine(doc_ids, emb, quantization=quantization,
+                            device="cuda")
+    q = torch.from_numpy(queries).to(cuda)
+    scores = dense_kernel_scores(q, eng._docs, eng._scales)
+    want = block_topk(scores, k=25)
+    assert torch.equal(want[1], topk(scores, k=25)[1])
+    assert (scores == want[0][:, -1:]).sum(1).min() > 25  # the planted ties
+    name = ("int4_similarity" if quantization == "int4"
+            else "int8_similarity") + "_blockmax"
+    fused = int(n >= tqz.BLOCK_SELECT_MIN_COLS and b >= FUSED_MAXIMA_MIN_ROWS)
+    before = tmm.LAUNCHES[name]
+    got = dense_kernel_step(q, eng._docs, eng._scales, 25)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES[name] == before + fused
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    vals, rows = eng.search_vectors(queries, top_k=25)
+    assert tmm.LAUNCHES[name] == before + 2 * fused
+    np.testing.assert_array_equal(rows, want[1].cpu().numpy())
+    np.testing.assert_array_equal(vals, want[0].cpu().numpy())
+    res = eng.search({f"q{i}": v for i, v in enumerate(queries)}, top_k=25,
+                     min_score=float("-inf"))
+    for i, hits in enumerate(res.values()):
+        assert list(hits) == [doc_ids[r] for r in rows[i]]
+        assert list(hits.values()) == vals[i].tolist()

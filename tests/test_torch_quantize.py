@@ -392,6 +392,134 @@ def test_k5_operands_are_the_inputs_when_aligned():
     assert dp == 48 and q is q8 and d is docs
 
 
+# ----------------------------------------------------------------------
+# K5's and K6's block maxima (csrc/similarity_wgmma.cu: stage_tile, fold,
+# max_slot, ordered), emulated here
+# ----------------------------------------------------------------------
+
+
+def _ordered(bits):
+    """csrc ``ordered``: int32 keys whose signed order is the floats'."""
+    bits = np.asarray(bits, np.int32)
+    return np.where(bits >= 0, bits, bits ^ np.int32(0x7FFFFFFF))
+
+
+def _max_slot(q):
+    return q ^ ((q >> 5) & 1) ^ (((q >> 6) & 1) << 3)
+
+
+def _tile_maxima_emulated(tile, live_docs):
+    """One (128 queries x 128 docs) f32 tile's per-query maxima over docs
+    [0, live_docs), as the epilogue reduces them: thread (warp 4 wg + w,
+    lane 4 g + t) takes the larger of docs row0 and row0 + 8 (row0 = 64
+    wg + 16 w + g; a doc >= live_docs is -inf) for queries 8 j + 2 t + e
+    (entry 2 j + e), three fold rounds of lanes 16, 8, 4 apart, then
+    atomicMax of its 4 keys into the swizzled slots. Returns the maxima
+    and, per warp and atomic round, the shared-memory banks of the 32
+    lanes' slots."""
+    slots = np.full(128, _ordered(np.float32(-np.inf).view(np.int32)))
+    banks = []
+    for warp in range(8):
+        wg, w = divmod(warp, 4)
+        m = np.empty((32, 32), np.float32)  # (lane, entry)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            row0 = 64 * wg + 16 * w + g
+            for p in range(32):
+                q = 8 * (p >> 1) + 2 * t + (p & 1)
+                v = [tile[q, d] if d < live_docs else -np.inf
+                     for d in (row0, row0 + 8)]
+                m[lane, p] = np.maximum(np.float32(v[0]), np.float32(v[1]))
+        for half in (16, 8, 4):
+            send = np.empty((32, half), np.float32)
+            keep = np.empty((32, half), np.float32)
+            for lane in range(32):
+                lo, hi = m[lane, :half], m[lane, half : 2 * half]
+                up = bool(lane & half)
+                send[lane], keep[lane] = (lo, hi) if up else (hi, lo)
+            for lane in range(32):
+                m[lane, :half] = np.maximum(keep[lane], send[lane ^ half])
+        for i in range(4):
+            qs = [16 * (lane >> 2) + 8 * (i >> 1) + 2 * (lane & 3) + (i & 1)
+                  for lane in range(32)]
+            banks.append([_max_slot(q) % 32 for q in qs])
+            for lane, q in enumerate(qs):
+                key = _ordered(m[lane, i].view(np.int32))
+                slots[_max_slot(q)] = max(slots[_max_slot(q)], key)
+    out = np.array([_ordered(slots[_max_slot(q)]) for q in range(128)],
+                   np.int32).view(np.float32)
+    return out, banks
+
+
+@pytest.mark.parametrize("live_docs", [128, 124, 1])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_k5_block_maxima_reduction_emulated(live_docs, sign):
+    """The epilogue's reduction gives each query's maximum over the tile's
+    real docs bit for bit (a ragged block's docs past N count as -inf, not
+    as the 0 the kernel computes there), each round of a warp's atomics
+    hitting 32 banks."""
+    rng = np.random.RandomState(live_docs)
+    tile = sign * rng.rand(128, 128).astype(np.float32)
+    tile[:, live_docs:] = 0.0  # what zero fill and the zero scale give
+    tile[5, 3] = tile[5, 4] = tile[5].max() + 1  # a planted tie
+    want = tile[:, :live_docs].max(axis=1)
+    got, banks = _tile_maxima_emulated(tile, live_docs)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert all(len(set(b)) == 32 for b in banks)
+
+
+def test_k5_block_maxima_keys_and_slots():
+    """``ordered`` keeps the floats' order (NaN, the canonical one max.NaN
+    gives, above +inf) and is its own inverse; ``max_slot`` is a
+    permutation whose 32 slots of a warp's queries hit 32 banks."""
+    vals = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-30, 2.0, np.inf,
+                     np.nan], np.float32)
+    vals[-1] = np.int32(0x7FFFFFFF).view(np.float32)
+    keys = _ordered(vals.view(np.int32))
+    assert (np.diff(keys.astype(np.int64)) > 0).all()
+    np.testing.assert_array_equal(_ordered(keys), vals.view(np.int32))
+    q = np.arange(128)
+    assert sorted(_max_slot(q)) == list(q)
+    for w in range(4):
+        assert len(set(_max_slot(q[32 * w : 32 * w + 32]) % 32)) == 32
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("b,n,d", [(37, 1_000, 64), (5, 128, 32), (3, 7, 16)])
+def test_similarity_blockmax_plain_twins(int4, b, n, d):
+    """On CPU tensors the blockmax wrappers return the plain scores and
+    ``topk.block_max`` of them, and launch (count) nothing."""
+    from osr_tpu_torch.ops.topk import block_max
+
+    rng = np.random.RandomState(b + n)
+    q8 = _codes(rng, (b, d), False)
+    docs = _codes(rng, (n, d // 2 if int4 else d), int4)
+    args = _t(q8, docs, (rng.rand(b) / 127).astype(np.float32),
+              (rng.rand(n) / 7).astype(np.float32))
+    before = dict(tmm.LAUNCHES)
+    fn = tmm.int4_similarity_blockmax if int4 else tmm.int8_similarity_blockmax
+    scores, maxima = fn(*args)
+    plain = tmm.int4_similarity_plain if int4 else tmm.int8_similarity_plain
+    want = plain(*args)
+    assert tmm.LAUNCHES == before
+    assert maxima.shape == (b, -(-n // 128))
+    assert torch.equal(scores, want)
+    assert torch.equal(maxima, block_max(want))
+
+
+def test_reset_launches_clears_blockmax_counts():
+    saved = dict(tmm.LAUNCHES)
+    assert {"int8_similarity_blockmax", "int4_similarity_blockmax"} <= set(
+        tmm.LAUNCHES)
+    try:
+        for name in tmm.LAUNCHES:
+            tmm.LAUNCHES[name] = 3
+        tmm.reset_launches()
+        assert set(tmm.LAUNCHES.values()) == {0}
+    finally:
+        tmm.LAUNCHES.update(saved)
+
+
 def _nibbles_to_s8(x):
     """csrc/similarity_wgmma.cu:nibbles_to_s8 on uint32 words: the signed
     codes of the low and of the high nibbles, byte for byte."""
@@ -869,6 +997,64 @@ def test_int8_similarity_edges_on_card(cuda, b, n, d):
     padded = int(d % tmm.TMA_ALIGN != 0)
     assert tmm.PAD_COPIES == {k: v + padded for k, v in copies.items()}
     assert torch.equal(got, want)
+
+
+# K5 and K6 with their block maxima, (B, N, D): N a multiple of 128, off
+# 128, off 4 (plain stores), below 128; B = 1, 1,024 and 1,000, and last
+# query tiles of 1, 2, 3, 8 and 9 rows (rows >= B not written). "negative":
+# every real score of the ragged last block is below 0 (non-negative
+# queries, negative codes there), so a maximum that counted the block's
+# zero-filled docs would read 0.
+BLOCKMAX_CASES = [
+    (130, 1_024, 768, ""), (37, 1_000, 776, ""), (130, 1_031, 128, ""),
+    (64, 127, 48, ""), (1, 4_099, 768, ""), (1_024, 2_048, 768, ""),
+    (1_000, 3_000, 256, ""), (136, 1_000, 256, ""), (137, 300, 128, ""),
+    (70, 1_000, 256, "negative"),
+    (3, 127, 32, "negative"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("b,n,d,tail", BLOCKMAX_CASES)
+def test_similarity_blockmax_on_card(cuda, int4, b, n, d, tail):
+    """The kernel's maxima equal ``topk.block_max`` of its own scores bit
+    for bit, and its scores equal the scores-only launch's and the plain
+    version's."""
+    from osr_tpu_torch.ops.topk import block_max
+
+    rng = np.random.RandomState(b * n + d)
+    q8 = _codes(rng, (b, d), False)
+    docs = _codes(rng, (n, d // 2 if int4 else d), int4)
+    if tail:
+        q8 = np.abs(q8.astype(np.int16)).clip(1, 127).astype(np.int8)
+        last = docs[n - n % 128 :]
+        if int4:  # both nibbles in 8..15: codes -8..-1
+            last[:] = (rng.randint(8, 16, last.shape)
+                       | rng.randint(8, 16, last.shape) << 4)
+        else:
+            last[:] = rng.randint(-128, 0, last.shape)
+    qs = (rng.rand(b) / 127).astype(np.float32)
+    ds = (rng.rand(n) / 7).astype(np.float32)
+    args = _t(q8, docs, qs, ds, device=cuda)
+    name = "int4_similarity" if int4 else "int8_similarity"
+    before = dict(tmm.LAUNCHES)
+    fused = (tmm.int4_similarity_blockmax if int4
+             else tmm.int8_similarity_blockmax)
+    scores, maxima = fused(*args)
+    alone = (tmm.int4_similarity if int4 else tmm.int8_similarity)(*args)
+    plain = tmm.int4_similarity_plain if int4 else tmm.int8_similarity_plain
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert tmm.LAUNCHES[name] == before[name] + 2
+    assert tmm.LAUNCHES[name + "_blockmax"] == before[name + "_blockmax"] + 1
+    assert maxima.shape == (b, -(-n // 128))
+    assert torch.equal(scores.view(torch.int32), alone.view(torch.int32))
+    assert torch.equal(scores, want)
+    assert torch.equal(maxima.view(torch.int32),
+                       block_max(scores).view(torch.int32))
+    if tail:
+        assert (maxima[:, -1] < 0).all()
 
 
 @pytest.mark.cuda
