@@ -28,10 +28,12 @@ import torch
 
 def topk(scores: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact descending top-k along the last axis: (values, int32 indices);
-    ties resolve to the lower index."""
+    ties resolve to the lower index. Both are copies, so the sort's
+    full-width outputs are freed on return (a row-chunked step holds every
+    chunk's top-k until the merge)."""
     kk = min(k, scores.shape[-1])
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :kk], idx[..., :kk].int()
+    return vals[..., :kk].contiguous(), idx[..., :kk].int()
 
 
 def fast_topk(

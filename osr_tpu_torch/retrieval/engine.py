@@ -36,8 +36,8 @@ buffers and event as the sparse engine's.
 Spans and counters. Each stage of a batch or a request is an
 ``osr.sparse.*`` / ``osr.dense.*`` span (``utils/timing.py:span``): a
 ``torch.profiler`` range while a profiler runs, nothing otherwise. The
-sparse engine also counts its queries, batches, tail candidates and
-re-dispatches (``stats()["counters"]``).
+sparse engine also counts its queries, batches, tail candidates,
+re-dispatches and row-chunk sweeps (``stats()["counters"]``).
 """
 
 from __future__ import annotations
@@ -93,12 +93,17 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_BATCH_SIZES = (8, 32, 128, 256, 512)
 
-# Share of the device memory free at construction that the head plus one
-# sweep's transients (the (B_max, rows) f32 score slab, and the plain
-# path's f32 head copy) may take. The rest covers the selection's
-# transients (a stable sort holds values, int64 indices and scratch several
-# times its input) and the batches kept in flight.
-SEARCH_MEMORY_FRACTION = 0.25
+# Share of the device memory the head leaves free (free at construction,
+# less the head) that one sweep's transients (the (B_max, rows) f32 score
+# slab, and the plain path's f32 head copy) may take. The rest covers the
+# selection's transients (a stable sort holds values, int64 indices and
+# scratch several times its input) and the batches kept in flight. On the
+# H100 at MS MARCO passage's head (18.1 GB, B = 3,496, top_k 1,000) a batch
+# took 606 / 424 / 381 ms in sweeps of 1.1M / 2.2M / 2.9M rows (each sweep
+# sorts its k pruned blocks, so fewer sweeps are faster), at peaks of 50 /
+# 64 / 74 GiB of 79 GiB: half leaves 4 sweeps of 2.2M rows there and room
+# for the selection (PERF.md, Where the time goes).
+SEARCH_MEMORY_FRACTION = 0.5
 
 
 def plan_score_chunks(
@@ -116,25 +121,27 @@ def plan_score_chunks(
     A sweep over ``rows`` head rows holds ``rows * row_bytes`` of
     transients: the (B_max, rows) f32 score slab, 4 B_max bytes a row, plus
     4 W bytes a row when the plain head step decodes the head to f32.
-    ``budget`` is ``SEARCH_MEMORY_FRACTION`` of ``free_bytes``. Auto
-    (``requested=None``) keeps one sweep while head + R rows fit the
-    budget, and otherwise chunks at max((budget - head) / row_bytes,
-    4,096) rows, rounded down to the kernels' row tile. An explicit
-    ``requested`` is honoured. ``chunk_rows`` is 0 for one sweep; ``need``
-    is the head plus one sweep's transients of the plan chosen, which the
-    caller compares with ``budget`` (None without a device figure)."""
+    ``budget`` is ``SEARCH_MEMORY_FRACTION`` of the memory the head leaves,
+    ``free_bytes - head_bytes``: a head that fills a quarter of the card
+    still leaves its sweeps room, so they keep enough 128-row blocks for
+    the block-pruned selection. Auto (``requested=None``) keeps one sweep
+    while R rows' transients fit the budget, and otherwise chunks at
+    max(budget / row_bytes, 4,096) rows, rounded down to the kernels' row
+    tile. An explicit ``requested`` is honoured. ``chunk_rows`` is 0 for
+    one sweep; ``need`` is one sweep's transients of the plan chosen, which
+    the caller compares with ``budget`` (None without a device figure)."""
     row_bytes = 4 * max_batch + (4 * head_width if plain_f32_copy else 0)
     rows = round_up(num_rows, head_ops.ROW_TILE)
     budget = (
-        int(SEARCH_MEMORY_FRACTION * free_bytes)
+        int(SEARCH_MEMORY_FRACTION * max(free_bytes - head_bytes, 0))
         if free_bytes is not None
         else None
     )
     if requested is None:
-        if budget is None or head_bytes + rows * row_bytes <= budget:
+        if budget is None or rows * row_bytes <= budget:
             chunk = 0
         else:
-            fit = (budget - head_bytes) // row_bytes
+            fit = budget // row_bytes
             fit -= fit % head_ops.ROW_TILE
             chunk = max(fit, BLOCK_PRUNE_MIN_ROWS)
     else:
@@ -142,7 +149,7 @@ def plan_score_chunks(
     if chunk >= num_rows:
         chunk = 0
     sweep = round_up(chunk, head_ops.ROW_TILE) if chunk else rows
-    return chunk, head_bytes + sweep * row_bytes, budget
+    return chunk, sweep * row_bytes, budget
 
 
 def _head_to(arr: np.ndarray, head_dtype: str, device) -> torch.Tensor:
@@ -368,9 +375,12 @@ class SparseSearchEngine:
             chunk_rows=self._chunk_rows(score_chunk_rows) or None,
         )
         # Real queries and batches dispatched, tail candidates walked,
-        # extraction batches re-run by the standard program.
+        # extraction batches re-run by the standard program, row-chunk
+        # sweeps dispatched (re-runs included).
         self._counts = dict.fromkeys(
-            ("queries", "batches", "tail_candidates", "redispatches"), 0
+            ("queries", "batches", "tail_candidates", "redispatches",
+             "chunk_sweeps"),
+            0,
         )
         (
             self._host_head,
@@ -418,9 +428,8 @@ class SparseSearchEngine:
             return 0
         if requested and rows and budget is not None and need > budget:
             logger.warning(
-                "score_chunk_rows=%d needs %.1f GiB of head + chunk, over "
-                "the %.1f GiB search budget: expect the device to run out "
-                "of memory",
+                "score_chunk_rows=%d needs %.1f GiB a sweep, over the %.1f "
+                "GiB search budget: expect the device to run out of memory",
                 rows, need / 2**30, budget / 2**30,
             )
         return rows
@@ -512,14 +521,17 @@ class SparseSearchEngine:
         d = self._dev
         vals, rows, flags = [], [], []
         for head_c, valid_c in d.chunks:
-            top, r, unsafe, _ = self._sweep(
-                ids, w, head_c, valid_c, top_k, extract
-            )
+            with span("osr.sparse.chunk"):
+                top, r, unsafe, _ = self._sweep(
+                    ids, w, head_c, valid_c, top_k, extract
+                )
             vals.append(top)
             rows.append(r)
             flags.append(unsafe)
-        top, r = merge_chunks(torch.stack(vals), torch.stack(rows),
-                              d.chunk_bases)
+        self._counts["chunk_sweeps"] += len(d.chunks)
+        with span("osr.sparse.chunk_merge"):
+            top, r = merge_chunks(torch.stack(vals), torch.stack(rows),
+                                  d.chunk_bases)
         return top, r, (torch.stack(flags).any() if extract else None)
 
     def _standard_step(self, ids, w, top_k: int):

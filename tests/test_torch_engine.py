@@ -300,12 +300,13 @@ def test_chunking_needs_the_host_merge(plan_case, caplog):
 
 # Rows 100,000 (100,096 at the 128-row tile), a 1 MB head, B_max = 512,
 # 256 head columns: the sweep's transients are 4 * 512 = 2,048 bytes a
-# row, 3,072 with the plain path's f32 head copy.
+# row, 3,072 with the plain path's f32 head copy. The budget is half of
+# what the head leaves: (free - 1 MB) / 2.
 BUDGET_CASES = [
     # (free bytes, plain f32 copy, requested, chunk rows)
-    (10**9, False, None, 0),  # 1 MB + 205 MB fits 250 MB: one sweep
-    (100 * 10**6, False, None, 11_648),  # (25 MB - 1 MB) / 2,048, tiled
-    (100 * 10**6, True, None, 7_808),  # the f32 copy: / 3,072, tiled
+    (10**9, False, None, 0),  # 205 MB fits 499.5 MB: one sweep
+    (100 * 10**6, False, None, 24_064),  # 49.5 MB / 2,048, tiled
+    (100 * 10**6, True, None, 16_000),  # the f32 copy: / 3,072, tiled
     (8 * 10**6, False, None, 4_096),  # the floor
     (None, False, None, 0),  # no device figure: no budget
     (8 * 10**6, False, 5_000, 5_000),  # an explicit size is honoured
@@ -322,10 +323,55 @@ def test_plan_score_chunks(free, copy, requested, chunk):
     assert rows == chunk
     row_bytes = 2_048 + (1_024 if copy else 0)
     sweep = -(-(rows or 100_000) // 128) * 128
-    assert need == 10**6 + sweep * row_bytes
-    assert budget == (None if free is None else free // 4)
+    assert need == sweep * row_bytes
+    assert budget == (None if free is None else (free - 10**6) // 2)
     if free is not None and requested is None and rows > 4_096:
         assert need <= budget  # an auto chunk above the floor fits
+
+
+def _tiled(rows):
+    return -(-rows // 128) * 128
+
+
+def _sweep_rows(num_rows, chunk):
+    """(rows of each sweep, sweeps) as ``_DeviceIndex`` equalizes the
+    chunks."""
+    n = -(-num_rows // _tiled(chunk))
+    return _tiled(-(-num_rows // n)), n
+
+
+# Heads that fill about a quarter of the free memory: each sweep keeps
+# more 128-row blocks than twice the depth, so every sweep takes the
+# block-pruned selection (a budget of a quarter of the free memory with
+# the head inside it left them the 4,096-row floor).
+HEAD_CASES = {
+    # 1M rows x 2,048 int8 columns (2.048 GB) of 8.2 GB free, B = 1,024,
+    # top_k 1,000: 3.076 GB / 4,096 B -> 750,976 rows, 2 sweeps of
+    # 500,096 rows (3,907 blocks).
+    "quarter": (1_000_000, 1_000_064 * 2_048, 1_024, 8_200_000_000, 1_000,
+                2),
+    # MS MARCO passage: 8,841,823 rows (8,841,856 tiled) x 2,048 (18.1
+    # GB), B = 3,496, 84.5 GB free, top_k 1,000: 33.2 GB / 13,984 B ->
+    # 2,373,760 rows, 4 sweeps of 2,210,560 rows (17,270 blocks).
+    "msmarco": (8_841_823, 8_841_856 * 2_048, 3_496, 84_500_000_000, 1_000,
+                4),
+}
+
+
+@pytest.mark.parametrize("case", list(HEAD_CASES))
+def test_plan_keeps_block_pruning_under_a_large_head(case):
+    from osr_tpu_torch.ops.bm25 import block_prune_applies
+
+    num_rows, head_bytes, batch, free, top_k, sweeps = HEAD_CASES[case]
+    chunk, need, budget = plan_score_chunks(
+        num_rows=num_rows, head_bytes=head_bytes, max_batch=batch,
+        head_width=2_048, free_bytes=free, plain_f32_copy=False,
+    )
+    assert chunk > 0 and need <= budget
+    rows, n = _sweep_rows(num_rows, chunk)
+    assert n == sweeps
+    assert block_prune_applies(rows, top_k), (rows, top_k)
+    assert rows * 4 * batch <= budget
 
 
 # search_token_batch, mirrored from tests/test_sparse_scoring.py's
@@ -370,3 +416,104 @@ def test_search_token_batch_equals_dense_argsort(head_terms):
             abs(j_scores[r, c] - j_scores[r, j]) <= RTOL * abs(j_scores[r, c])
             for j in near
         ), (r, c)
+
+
+# ----------------------------------------------------------------------
+# The chunked engine at a small size, against the benchmark's plain
+# reference (perfbench/reference/sparse_bm25.py, float64 over the same int8
+# head) and against the unchunked engine on the same index
+# ----------------------------------------------------------------------
+
+CHUNKED_K = 10
+CHUNKED_B = 32
+
+
+@pytest.fixture(scope="module")
+def chunked_case():
+    """12,000 docs of the port's generator, the port's int8 index (head of
+    512 terms), 64 queries: 3 chunks of 4,096 rows, each of 32 blocks,
+    more than twice the depth of 10, so every sweep prunes."""
+    from osr_tpu_torch.index.builder import SparseIndexBuilder as TBuilder
+
+    gen = ttesting.SyntheticDataGenerator(seed=5)
+    corpus = gen.zipf_corpus(12_000, VOCAB, avg_len=40, word_prefix="t",
+                             min_len=5)
+    queries = gen.queries(2 * CHUNKED_B, VOCAB, avg_terms=6, word_prefix="t",
+                          min_terms=2)
+    index = TBuilder(method="bm25", k1=0.82, b=0.68, head_terms=512,
+                     head_dtype="int8").build(corpus)
+    return corpus, queries, index
+
+
+def _chunked_engine(index, chunk):
+    return SparseSearchEngine(
+        index, device="cpu", batch_sizes=(CHUNKED_B,), cache_queries=False,
+        merge_backend="host", score_chunk_rows=chunk,
+    )
+
+
+def test_chunked_engine_prunes_every_sweep(chunked_case):
+    from osr_tpu_torch.ops.bm25 import block_prune_applies
+
+    _, _, index = chunked_case
+    eng = _chunked_engine(index, CHUNK)
+    d = eng._dev
+    assert len(d.chunks) == 3 and d.chunk_rows == CHUNK
+    assert all(h.shape[0] == CHUNK for h, _ in d.chunks)
+    assert block_prune_applies(d.chunk_rows, CHUNKED_K)
+
+
+def test_chunked_engine_equals_unchunked(chunked_case):
+    """Rows and scores equal, batch for batch: each chunk's pruned top-k
+    holds every global top-k row of the chunk, and the merge orders ties
+    toward the lower chunk, so toward the lower row."""
+    _, queries, index = chunked_case
+    texts = list(queries.values())
+    chunked = _chunked_engine(index, CHUNK)
+    whole = _chunked_engine(index, 0)
+    assert whole._dev.chunks is None
+    for i in range(0, len(texts), CHUNKED_B):
+        got = chunked.search_token_batch(texts[i:i + CHUNKED_B], CHUNKED_K)
+        want = whole.search_token_batch(texts[i:i + CHUNKED_B], CHUNKED_K)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    assert chunked.stats()["counters"]["chunk_sweeps"] == 3 * 2
+    assert whole.stats()["counters"]["chunk_sweeps"] == 0
+
+
+def test_chunked_engine_matches_the_plain_reference(chunked_case):
+    """Each answer against the reference's float64 scores: the scores the
+    engine returns are the reference's of the same rows, and its i-th row
+    scores as the reference's i-th best, both within the benchmark's
+    sparse limit (0.008 of the query's scale: the scaled query rounds to
+    bf16 in the head product); a row of the reference's exact top-k (ties
+    to the lower row) that the engine left out scores within that limit of
+    the k-th, and most answers (three quarters) are the reference's rows in
+    its order."""
+    from perfbench import compare
+    from perfbench.reference.sparse_bm25 import SparseReference
+
+    corpus, queries, index = chunked_case
+    doc_ids = list(corpus)
+    ref = SparseReference([corpus[d]["text"] for d in doc_ids], k1=0.82,
+                          b=0.68, head_terms=512)
+    texts = list(queries.values())
+    scores = ref.scores(texts).numpy()
+    got = _chunked_engine(index, CHUNK).search(queries, top_k=CHUNKED_K)
+    row_of = {d: r for r, d in enumerate(doc_ids)}
+    same = 0
+    for j, (qid, text) in enumerate(queries.items()):
+        rows = [row_of[d] for d in got[qid]]
+        s = scores[j]
+        order = np.argsort(-s, kind="stable")[:CHUNKED_K]
+        top = np.where(s[order] > 0, s[order], -np.inf)
+        gaps = compare.answer_gaps(rows, list(got[qid].values()), s[rows],
+                                   top, ref.scale(text), positive_only=True)
+        assert max(gaps) <= 0.008, (qid, gaps)
+        want = [int(r) for r in order if s[r] > 0]
+        same += rows == want
+        # A row the engine left out scores within the limit of the k-th.
+        kth = s[want[-1]] if want else 0.0
+        for r in set(want) - set(rows):
+            assert s[r] - kth <= 0.008 * ref.scale(text), (qid, r)
+    assert same >= 0.75 * len(queries), same  # 54 of 64 here

@@ -1,8 +1,8 @@
 """The engines' spans and counters (``osr_tpu_torch/retrieval/engine.py``,
 ``utils/timing.py:span``) on the CPU: a ``record_function`` range a
 stage of a batch or a request while a profiler runs, none otherwise; the
-sparse engine's counts of queries, batches, tail candidates and
-re-dispatches; and ``bench/common.py:batch_stages``, which reads the
+sparse engine's counts of queries, batches, tail candidates,
+re-dispatches and row-chunk sweeps; and ``bench/common.py:batch_stages``, which reads the
 spans of one served ``search``."""
 
 import numpy as np
@@ -141,6 +141,27 @@ def test_extraction_rerun_spans_and_counts(index, queries, monkeypatch):
     assert stats["counters"]["redispatches"] == 2
 
 
+def test_chunked_search_spans_each_chunk_once_a_batch(index, queries):
+    """5,000 docs in chunks of 2,048 rows (3 sweeps), 48 queries in
+    batches of 32: ``osr.sparse.chunk`` opens once a chunk of a batch and
+    ``osr.sparse.chunk_merge`` once a batch, both inside the batch's
+    dispatch; ``chunk_sweeps`` counts every sweep."""
+    eng = _engine(index, merge_backend="host", score_chunk_rows=2_048)
+    assert len(eng._dev.chunks) == 3
+    spans = _osr_spans(lambda: eng.search(queries, top_k=10))
+    batches = -(-len(queries) // BATCH)
+    assert _count(spans, "osr.sparse.chunk") == 3 * batches
+    assert _count(spans, "osr.sparse.chunk_merge") == batches
+    dispatches = [s for s in spans if s[0] == "osr.sparse.dispatch"]
+    assert len(dispatches) == batches
+    for d in dispatches:
+        inner = [s[0] for s in spans if s[0] in (
+            "osr.sparse.chunk", "osr.sparse.chunk_merge") and _inside(s, d)]
+        assert inner == ["osr.sparse.chunk"] * 3 + ["osr.sparse.chunk_merge"]
+    c = eng.stats()["counters"]
+    assert c["chunk_sweeps"] == 3 * batches and c["batches"] == batches
+
+
 def test_dense_search_spans_one_request(queries):
     rng = np.random.default_rng(3)
     emb = rng.standard_normal((500, 32)).astype(np.float32)
@@ -174,12 +195,13 @@ def test_counters_sum_the_batches(index, queries):
             enc = eng.encode_queries(texts[i:i + BATCH])
             want_cand += eng._tail_candidates(enc, BATCH).total
     assert eng.stats()["counters"] == dict.fromkeys(
-        ("queries", "batches", "tail_candidates", "redispatches"), 0)
+        ("queries", "batches", "tail_candidates", "redispatches",
+         "chunk_sweeps"), 0)
     eng.search(first, top_k=10)
     eng.search(second, top_k=10)
     assert eng.stats()["counters"] == {
         "queries": 48 + 30, "batches": 2 + 1,
-        "tail_candidates": want_cand, "redispatches": 0}
+        "tail_candidates": want_cand, "redispatches": 0, "chunk_sweeps": 0}
     assert want_cand > 0
 
 

@@ -213,3 +213,19 @@ def test_merge_chunks_matches_merge_packed_chunks(levels):
     ev, ei = ttopk.topk(_t(s), k=k)
     np.testing.assert_array_equal(top.numpy(), ev.numpy())
     np.testing.assert_array_equal(grows.numpy(), ei.numpy())
+
+
+@pytest.mark.parametrize("k", [1, 50, 1000])
+def test_topk_outputs_hold_only_k_columns(k):
+    """The values and indices own k columns each, not the sort's full
+    width, so a row-chunked step that keeps every chunk's top-k until the
+    merge does not keep every chunk's sort."""
+    scores = torch.from_numpy(
+        np.random.default_rng(k).standard_normal((8, 4096)).astype(np.float32))
+    vals, idx = ttopk.topk(scores, k=k)
+    assert vals.shape == idx.shape == (8, k)
+    assert vals.untyped_storage().nbytes() == 8 * k * 4
+    assert idx.untyped_storage().nbytes() == 8 * k * 4
+    want = torch.sort(scores, dim=-1, descending=True, stable=True)
+    assert torch.equal(vals, want.values[:, :k])
+    assert torch.equal(idx.long(), want.indices[:, :k])
