@@ -5,8 +5,9 @@ recorded in PERF.md).
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. build the hand-written kernels (osr_tpu_torch/csrc: head_wgmma.cu,
-   similarity_wgmma.cu, quantize.cu) with nvcc and the host runtime
-   (csrc/host_runtime.cc) with g++, one process per source, all at once;
+   similarity_wgmma.cu, quantize.cu, topk_select.cu) with nvcc and the
+   host runtime (csrc/host_runtime.cc) with g++, one process per source,
+   all at once;
    fail unless the runtime loads from build/osr_tpu_torch/ (no engine on
    the card runs without it); walk the tail postings of a 67,108,864-row
    index (rows past 2^24, 1,024 queries) through tail_candidates_flat,
@@ -17,8 +18,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    five kernels (K1, K2, K4-i8, K3, K4-i4) holds HGMMA and UTMALDG (wgmma
    and TMA loads) and that of similarity_wgmma.cu's K5 and K6 IGMMA
    (integer wgmma), UTMALDG and UTMASTG (TMA stores);
-2. hold K1, K2 and K3 against their plain PyTorch versions on the card, at
-   a ragged small shape and at the FiQA bench shape (the main path's own
+2. hold the exact top-k select kernel (topk_select.cu) against the stable
+   sort's first k, values and int32 indices bit for bit, at every
+   selection shape of the benchmark's five cells (SELECT_SHAPES, scores
+   with head scores' ties) and on K1's own scores at the FiQA bench shape,
+   and time it beside the sort, torch.topk (a yardstick the port never
+   calls) and its bound (the scores read once); hold K1, K2 and K3
+   against their plain PyTorch versions on the card, at a ragged small
+   shape and at the FiQA bench shape (the main path's own
    inputs), with the tolerance of tests/test_torch_head.py, K1's scores
    equal to K2's bit for bit there, and K1, K2/K4-i8 and K3/K4-i4 at the
    edges of their TMA rings (int8 widths 16 to 2,048 bytes, int4 packed
@@ -37,7 +44,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    docs, 100k-term vocabulary) and its 6,648 queries through
    SparseSearchEngine(device="cuda", batch_sizes=(3328,)) at top_k=50 (K2),
    the same index at top_k=1000 (K1), and an int4 build (K3), counting
-   each kernel's launches in each run; then, on each index, the
+   each kernel's launches in each run (each must launch the select kernel
+   and send no selection to the stable sort); then, on each index, the
    extraction plan (narrow_m=8, narrow_backend='extract': K4), the
    narrowed plan (narrow_m=8) and topk_mode='approx' (both run the
    standard block-pruned selection, K2 / K3), whose results must each
@@ -108,7 +116,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 10. drive the dense path at 1,000,000 x 768, for symmetric (K7 + K5) and
    int4 (K7 + K6): DenseSearchEngine(device="cuda") built from f32
    embeddings drawn on the card, 4,096 queries (corpus rows) in batches of
-   1,024 at top_k=50, launches counted; the corpus codes equal the plain
+   1,024 at top_k=50, launches counted (the select kernel among them, and
+   no selection sent to the stable sort); the corpus codes equal the plain
    quantizer's; K5's and K6's wrappers made no operand copy; 256 queries
    give the backend='torch' engine's ids and bit-equal scores; the
    self-hit rate; each kernel against its plain version at the path's
@@ -200,6 +209,10 @@ eight ranks included), on every kernel's),
 and last a JSON line {"ok": true, "device": {...}}. Exits non-zero without
 a result when no CUDA device is available. Run: python3 chip_smoke.py
 
+``python3 chip_smoke.py --select`` builds, prints every kernel's
+registers and shared memory and runs only phase 2's select kernel checks
+and times.
+
 ``python3 chip_smoke.py --host-stages [--tree DIR]`` times only the
 sparse path's host stages (one FiQA-scale batch stage by stage, and the
 FiQA and 1M tail walks, first batch and later ones) for the port of this
@@ -288,7 +301,10 @@ DENSE_KERNELS = {
     "quantize_symmetric_stochastic": "osr_tpu/ops/pallas/quantize.py:32",
     "dequantize_symmetric": "osr_tpu/ops/pallas/quantize.py:115",
 }
-KERNELS = {**HEAD_KERNELS, **TOPM_KERNELS, **DENSE_KERNELS}
+SELECT_KERNELS = {
+    "topk_select": "none: lax.top_k was XLA's primitive, no Pallas kernel",
+}
+KERNELS = {**HEAD_KERNELS, **TOPM_KERNELS, **DENSE_KERNELS, **SELECT_KERNELS}
 SOURCES = {
     "head_wgmma.cu": ("head_scores_i8", "head_blockmax_i8",
                       "head_blocktopm_i8", "head_blockmax_i4",
@@ -296,6 +312,7 @@ SOURCES = {
     "similarity_wgmma.cu": ("int8_similarity", "int4_similarity"),
     "quantize.cu": ("quantize_symmetric", "quantize_symmetric_stochastic",
                     "dequantize_symmetric"),
+    "topk_select.cu": ("topk_select",),
 }
 SOURCE_OF = {k: f"osr_tpu_torch/csrc/{src}" for src, ks in SOURCES.items()
              for k in ks}
@@ -311,7 +328,22 @@ MANGLED = {
     "quantize_rows_kernelILb0ELb1E": "quantize_symmetric",
     "quantize_rows_kernelILb1ELb1E": "quantize_symmetric_stochastic",
     "dequantize_rows_kernelILb1E": "dequantize_symmetric",
+    "topk_select_kernelILb1E": "topk_select",  # float32 (int32 is ILb0E)
 }
+# The selections of the benchmark's cells: (the cell, the selection, rows,
+# row width, k).
+SELECT_SHAPES = (
+    ("fiqa-bm25.top1000", "full row", 3_328, 57_728, 1_000),
+    ("fiqa-bm25.batch", "block maxima", 3_328, 451, 50),
+    ("fiqa-bm25.batch", "candidates", 3_328, 6_400, 50),
+    ("msmarco-bm25.top1000", "sweep candidates", 3_496, 128_000, 1_000),
+    ("msmarco-bm25.top1000", "sweep block maxima", 3_496, 17_270, 1_000),
+    ("msmarco-bm25.top1000", "chunk merge", 3_496, 4_000, 1_000),
+    ("nq-contriever-int8.batch", "block maxima", 1_024, 20_949, 100),
+    ("nq-contriever-int8.batch", "candidates", 1_024, 12_800, 100),
+    ("nq-contriever-int8.interactive", "block maxima", 1, 20_949, 10),
+    ("nq-contriever-int8.interactive", "candidates", 1, 1_280, 10),
+)
 
 
 def log(msg):
@@ -695,6 +727,68 @@ def kernel_numbers(name, head, scales, qhead, valid):
     }
 
 
+def select_scores(b, n, seed, dev):
+    """Seeded (b, n) f32 scores with head scores' ties: Gaussians rounded
+    to quarters and clamped at 0 (about half the entries 0), every
+    seventh row all 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(b, n, generator=g, device=dev) * 4).round().clamp_min(0)
+    x /= 4
+    x[::7] = 0.0
+    return x
+
+
+def select_case(label, x, k):
+    """The select kernel against the stable sort's first k on x (values
+    and int32 indices bit for bit), and its time beside the sort's,
+    torch.topk's (a yardstick the port never calls) and its bound: the
+    scores read once and the (b, k) values and indices written once."""
+    from osr_tpu_torch.ops import topk as T
+
+    sorts = T.SORT_ROUTE["cuda"]
+    vals, idx = T.topk(x, k=k)
+    want_v, want_i = torch.sort(x, dim=-1, descending=True, stable=True)
+    if (T.SORT_ROUTE["cuda"] != sorts
+            or not torch.equal(idx, want_i[:, :k].int())
+            or not torch.equal(vals.view(torch.int32),
+                               want_v[:, :k].contiguous().view(torch.int32))):
+        fail(f"select {label}: the kernel differs from the stable sort")
+    del want_v, want_i
+    b, n = x.shape
+    ms = median_ms(lambda: T.topk(x, k=k), reps=10)
+    sort_ms = median_ms(
+        lambda: torch.sort(x, dim=-1, descending=True, stable=True), reps=5
+    )
+    library_ms = median_ms(lambda: torch.topk(x, k, dim=-1), reps=5)
+    bound_ms = (4 * b * n + 8 * b * k) / PEAK_BYTES * 1e3
+    log(f"select {label}: B={b} n={n} k={k} ms={ms:.4f} "
+        f"sort_ms={sort_ms:.4f} torch_topk_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f}% of it)")
+    return {"ms": ms, "plain_ms": sort_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms}
+
+
+def select_phase(dev, own=()):
+    """The select kernel at every selection shape of the benchmark's
+    cells (SELECT_SHAPES, on select_scores), and at each (label, scores,
+    k) of ``own``. Returns the kernels-JSON row, at the FiQA full-row
+    shape; its launches are filled in later."""
+    row = {"name": "topk_select", "route": "cuda",
+           "source": SOURCE_OF["topk_select"],
+           "replaces": KERNELS["topk_select"], "launches": 0,
+           "max_abs_err": 0.0, "bound_by": "bytes"}
+    for cell, what, b, n, k in SELECT_SHAPES:
+        x = select_scores(b, n, b + n + k, dev)
+        numbers = select_case(f"{cell} {what}", x, k)
+        if (cell, what) == SELECT_SHAPES[0][:2]:
+            row.update(numbers)
+        del x
+        torch.cuda.empty_cache()
+    for label, x, k in own:
+        select_case(label, x, k)
+    return row
+
+
 def small_case(name, dev):
     """Ragged small inputs: B and R off the 128 tiles, invalid rows."""
     rng = np.random.RandomState(5)
@@ -953,13 +1047,18 @@ def blocktopm_small_checks(dev):
 
 def counted_search(engine, queries, top_k):
     """One pass with every launch count set to 0 just before it; returns
-    (results, launch counts of this pass)."""
+    (results, launch counts of this pass: the head kernels', the select
+    kernel's, and ``topk_sort_route``, the CUDA selections that took the
+    stable sort)."""
     from osr_tpu_torch.ops import head as H
+    from osr_tpu_torch.ops import topk as T
 
     H.reset_launches()
+    T.reset_launches()
     results = engine.search(queries, top_k=top_k)
     torch.cuda.synchronize()
-    return results, dict(H.LAUNCHES)
+    return results, {**H.LAUNCHES, **T.LAUNCHES,
+                     "topk_sort_route": T.SORT_ROUTE["cuda"]}
 
 
 def check_results(results, queries, top_k):
@@ -1895,15 +1994,16 @@ def quality_run(ds, methods, out_dir, **engine_kwargs):
 def quality_at_scale(ds, scratch):
     """Phase 8 (b): run_quality_benchmark over phase 7's FiQA-scale
     dataset, bm25 and tfidf at top_k=100 on cuda (K2), against the same
-    run with every engine's head on the plain version. Returns the
-    kernel run's launches."""
+    run with every engine's head on the plain version (which launches no
+    kernel but the select kernel: its selections are on the card).
+    Returns the kernel run's launches."""
     got, counts = quality_run(ds, QUALITY_METHODS, scratch / "quality")
     want, plain_counts = quality_run(
         ds, QUALITY_METHODS, scratch / "quality_plain", head_backend="torch"
     )
     if not counts.get("head_blockmax_i8"):
         fail("the quality benchmark launched no head_blockmax_i8")
-    if any(plain_counts.values()):
+    if any(v for k, v in plain_counts.items() if k not in SELECT_KERNELS):
         fail(f"the plain-head quality run launched kernels: {plain_counts}")
     for m in QUALITY_METHODS:
         ir = sorted(k for k in want[m] if "@" in k)
@@ -2290,6 +2390,7 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
     from osr_tpu_torch.ops import matmul as matmul_ops
     from osr_tpu_torch.ops import quantize as qz
     from osr_tpu_torch.ops import quantize_kernels as Q
+    from osr_tpu_torch.ops import topk as T
     from osr_tpu_torch.retrieval.engine import (
         FUSED_MAXIMA_MIN_ROWS,
         DenseSearchEngine,
@@ -2321,9 +2422,11 @@ def dense_path(quantization, emb, doc_ids, queries, dev):
         fail(f"{label}: the {sim} wrapper copied operands ({copies})")
     if eng.backend != "cuda":
         fail(f"{label}: the engine does not take the CUDA kernels")
-    for k in ("quantize_symmetric", sim):
+    for k in ("quantize_symmetric", sim, "topk_select"):
         if counts[k] == 0:
             fail(f"{label} launched no {k}")
+    if T.SORT_ROUTE["cuda"]:
+        fail(f"{label}: {T.SORT_ROUTE['cuda']} selections took the sort")
     if counts[sim + "_blockmax"] != (counts[sim] if fused else 0):
         fail(f"{label}: {counts[sim + '_blockmax']} of {counts[sim]} "
              f"{sim} launches wrote block maxima (fused path: {fused})")
@@ -2931,8 +3034,8 @@ DEVICE_STAGE_MODES = (
      ("stage_d_equals_device_step", "stage_e_equals_device_step")),
     ("profile-narrow", ("head_blockmax_i8", "head_blocktopm_i8"),
      ("outputs_equal_across_m",)),
-    ("profile-blocksel", (), ("scores_equal", "rows_equal")),
-    ("profile-topk2", (), ("int_trick_exact",)),
+    ("profile-blocksel", ("topk_select",), ("scores_equal", "rows_equal")),
+    ("profile-topk2", ("topk_select",), ("int_trick_exact",)),
     ("profile-topk-fix", ("head_scores_i8",),
      ("scan_equals_baseline", "scan_equals_baseline_scores")),
 )
@@ -3135,7 +3238,7 @@ def prose_modes(card, total, scratch):
     plain, plain_counts = quality_run(ds, ("bm25_custom",), scratch /
                                       "prose_plain_reports",
                                       head_backend="torch")
-    if any(plain_counts.values()):
+    if any(v for k, v in plain_counts.items() if k not in SELECT_KERNELS):
         fail(f"phase 13 plain-head quality run launched {plain_counts}")
     want = plain["bm25_custom"]
     got = at_scale["osr_tpu"]["bm25_custom"]
@@ -3571,6 +3674,11 @@ def main():
         "--tree", type=Path,
         help="with --host-stages: the checkout whose port to import",
     )
+    parser.add_argument(
+        "--select", action="store_true",
+        help="build, print the kernels' resources and run only the select "
+             "kernel's checks and times (select_phase)",
+    )
     args = parser.parse_args()
     if args.host_stages:
         if args.tree is not None:
@@ -3585,6 +3693,16 @@ def main():
         return 0
     if args.tree is not None:
         parser.error("--tree goes with --host-stages")
+    if args.select:
+        from osr_tpu_torch.ops import _build
+
+        log(f"card: {card_line()}")
+        _build.build_all()
+        regs, smem = kernel_resources()
+        log(f"registers per thread (ptxas): {regs}")
+        log(f"shared memory per block, bytes: {smem}")
+        log(json.dumps(select_phase(torch.device("cuda"))))
+        return 0
     from osr_tpu_torch.index.builder import SparseIndexBuilder
     from osr_tpu_torch.ops import _build
     from osr_tpu_torch.ops.bm25 import fused_search, fused_search_extract
@@ -3650,6 +3768,12 @@ def main():
         blocktopm_is_topm_of_blockmax(*bench_case(eng, texts))
         log(f"FiQA shape {dtype}: K4 equals the per-block top-{NARROW_M} "
             "of K2/K3's scores bit for bit")
+    scores, _ = kernel_call("head_scores_i8", *bench_case(eng8, texts))
+    select_row = select_phase(dev, own=[(
+        "fiqa-bm25.top1000 full row, K1's own scores", scores, DEEP_K)])
+    rows.append(select_row)
+    del scores
+    torch.cuda.empty_cache()
     # K4-i8 here for comparison with K2 at one shape; its row comes from
     # the 1M path.
     blocktopm_numbers("head_blocktopm_i8", *bench_case(eng8, texts))
@@ -3676,7 +3800,10 @@ def main():
         )
         if counts[kernel] == 0:
             fail(f"{label} launched no {kernel}")
+        if counts["topk_select"] == 0 or counts["topk_sort_route"]:
+            fail(f"{label}: a selection took the sort ({counts})")
         by_name[kernel]["launches"] = counts[kernel]
+        select_row["launches"] += counts["topk_select"]
         base[label] = results
     fiqa_plans(index8, base["main path int8 top_k=50"], queries, "int8")
     by_name["head_blocktopm_i4"]["launches"] = fiqa_plans(

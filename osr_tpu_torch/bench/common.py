@@ -141,15 +141,16 @@ def head_work(
 
 def all_launches() -> Dict[str, int]:
     """Every kernel wrapper's launch count."""
-    from osr_tpu_torch.ops import head, matmul, quantize_kernels
+    from osr_tpu_torch.ops import head, matmul, quantize_kernels, topk
 
-    return {**head.LAUNCHES, **matmul.LAUNCHES, **quantize_kernels.LAUNCHES}
+    return {**head.LAUNCHES, **matmul.LAUNCHES, **quantize_kernels.LAUNCHES,
+            **topk.LAUNCHES}
 
 
 def reset_all_launches() -> None:
-    from osr_tpu_torch.ops import head, matmul, quantize_kernels
+    from osr_tpu_torch.ops import head, matmul, quantize_kernels, topk
 
-    for mod in (head, matmul, quantize_kernels):
+    for mod in (head, matmul, quantize_kernels, topk):
         mod.reset_launches()
 
 

@@ -18,8 +18,9 @@ places, and ``rows_equal``, the same rows up to the order of tied scores
 (``common.equal_up_to_ties``): the plain top-k orders equal scores by
 row, the block-pruned one by block rank, and at the script's shape 9 of
 the 6,656 rows hold a tie in their top 50, where a strict comparison of
-rows, the script's, fails. No kernel runs (``kernel_launches`` is empty);
-``device`` as every mode.
+rows, the script's, fails. On the card only the select kernel runs
+(``kernel_launches`` holds ``topk_select`` alone); ``device`` as every
+mode.
 
 Usage: python -m osr_tpu_torch.bench profile-blocksel [--batch 6656]
 """

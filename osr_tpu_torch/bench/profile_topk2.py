@@ -7,8 +7,8 @@ Each variant keeps its whole (B, k) output, is run once to warm, then 4
 times enqueued with one synchronize after the last; milliseconds a call,
 under the script's labels:
 
-- ``top_k f32 full output``: the exact top-k (the port's stable sort,
-  ``ops/topk.py:topk``; ties to the lower column, as ``lax.top_k``);
+- ``top_k f32 full output``: the exact top-k (``ops/topk.py:topk``, the
+  select kernel on the card; ties to the lower column, as ``lax.top_k``);
 - ``top_k int32-bitcast``: the same over the scores' bits as int32,
   mapped so that signed integer order is float order (b >= 0 ? b :
   b ^ 0x7fffffff), and mapped back; ``int_trick_exact`` says whether its
@@ -17,8 +17,9 @@ under the script's labels:
   first stage of a coarse-then-rerank selection).
 
 Dropped, null keys named in ``dropped``: ``approx_max_k recall=1.0`` and
-``recall=0.95`` (``lax.approx_max_k`` has no CUDA counterpart). No
-kernel runs (``kernel_launches`` is empty); ``device`` as every mode.
+``recall=0.95`` (``lax.approx_max_k`` has no CUDA counterpart). On the
+card only the select kernel runs (``kernel_launches`` holds
+``topk_select`` alone); ``device`` as every mode.
 
 Usage: python -m osr_tpu_torch.bench profile-topk2 [--batch 6656]
 """

@@ -160,6 +160,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         ]
         lib.osr_dequantize_symmetric.restype = ci
         lib.osr_dequantize_symmetric.argtypes = [vp, vp, vp, ci, ci, vp]
+    elif name == "topk_select":
+        lib.osr_topk_select.restype = ci
+        lib.osr_topk_select.argtypes = [
+            vp, vp, vp, ci, ci, ctypes.c_longlong, ci, ci, vp,
+        ]
+        lib.osr_topk_select_max_k.restype = ci
+        lib.osr_topk_select_max_k.argtypes = []
     lib.osr_cuda_error_string.restype = ctypes.c_char_p
     lib.osr_cuda_error_string.argtypes = [ci]
     return lib

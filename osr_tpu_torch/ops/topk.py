@@ -4,9 +4,21 @@
 ``lax.top_k`` breaks ties toward the lower index, and the exactness and
 bit-identity arguments of the reference depend on it (``osr_tpu/ops/
 topk.py:129-133``, ``osr_tpu/index/postings.py:merge_host``).
-``torch.topk`` does not specify its tie order, so every selection here is
-a stable descending sort that keeps the first k: equal values stay in
-index order.
+``torch.topk`` does not specify its tie order, so every selection here
+goes through :func:`topk`, whose result is a stable descending sort's
+first k entries: equal values stay in index order.
+
+:func:`topk` has two versions. The plain one, for tensors on the CPU, is
+that stable sort (``torch.sort(..., stable=True)``). On a CUDA tensor it
+launches the hand-written select kernel (``csrc/topk_select.cu``, no
+full sort: a radix select of the k-th key and a sort of the k survivors
+in shared memory, or, for rows of at most 1,024 entries and k at most
+64, k warp-wide maxima a row), which returns the same values and
+indices bit for bit. Rows of at most k entries (nothing to discard)
+and k above :data:`MAX_K` (the kernel's shared-memory stage) take the
+sort on the card too; ``SORT_ROUTE`` counts those, ``LAUNCHES`` the
+kernel's launches. The kernel replaces no TPU kernel: ``lax.top_k`` was
+XLA's.
 
 ``osr_tpu``'s per-block narrowing (``block_topk_narrow``) has no
 counterpart: it is bit-identical to :func:`block_topk_from_max`, which the
@@ -21,19 +33,88 @@ well as its values, ties included.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
+MAX_K = 4096  # the select kernel's largest k (csrc/topk_select.cu: kMaxK)
+# The dtypes the kernel reads (as 32-bit words), and those it reads from an
+# exact float32 copy.
+_KERNEL_DTYPES = {torch.float32: 0, torch.int32: 1}
+_WIDENED_DTYPES = (torch.bfloat16, torch.float16)
+
+LAUNCHES: Dict[str, int] = {"topk_select": 0}
+# CUDA selections that took the stable sort: k above MAX_K, or rows of at
+# most k entries.
+SORT_ROUTE: Dict[str, int] = {"cuda": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["topk_select"] = 0
+    SORT_ROUTE["cuda"] = 0
+
+
+def takes_kernel(device_type: str, n: int, k: int) -> bool:
+    """Whether :func:`topk` over rows of n entries on a ``device_type``
+    tensor launches the select kernel: on CUDA, when the rows hold more
+    than k entries and k is at most :data:`MAX_K`."""
+    return device_type == "cuda" and n > k and k <= MAX_K
+
 
 def topk(scores: torch.Tensor, *, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact descending top-k along the last axis: (values, int32 indices);
-    ties resolve to the lower index. Both are copies, so the sort's
-    full-width outputs are freed on return (a row-chunked step holds every
-    chunk's top-k until the merge)."""
-    kk = min(k, scores.shape[-1])
+    """Exact descending top-k along the last axis: (values, int32 indices)
+    of shape ``scores.shape[:-1] + (min(k, n),)``; ties resolve to the
+    lower index. The outputs own those k columns alone, never a full-width
+    sort's (a row-chunked step holds every chunk's top-k until the merge).
+
+    On the CPU, a stable sort's first k entries. On a CUDA tensor, the
+    select kernel (:func:`takes_kernel`), equal to that sort bit for bit;
+    it reads float32 and int32, and bfloat16 and float16 through an exact
+    float32 copy, and raises for other dtypes."""
+    if k < 0:
+        raise ValueError(f"k must be non-negative, got {k}")
+    n = scores.shape[-1]
+    kk = min(k, n)
+    if takes_kernel(scores.device.type, n, kk):
+        return _select(scores, kk)
+    if scores.is_cuda:
+        SORT_ROUTE["cuda"] += 1
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :kk].contiguous(), idx[..., :kk].int()
+
+
+def _select(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk` through ``csrc/topk_select.cu``: leading axes taken as
+    rows, outputs allocated at (rows, k)."""
+    dtype = scores.dtype
+    if dtype in _WIDENED_DTYPES:
+        vals, idx = _select(scores.float(), k)
+        return vals.to(dtype), idx
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(
+            f"topk on a CUDA tensor reads float32, int32, bfloat16 or "
+            f"float16, not {dtype}"
+        )
+    n = scores.shape[-1]
+    lead = scores.shape[:-1]
+    x = scores.reshape(-1, n)
+    rows = x.shape[0]
+    if x.stride(-1) != 1 or (rows > 1 and x.stride(0) < n):
+        x = x.contiguous()
+    vals = torch.empty((rows, k), dtype=dtype, device=x.device)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
+    if rows and k:
+        from osr_tpu_torch.ops import _build
+
+        lib = _build.library("topk_select")
+        code = lib.osr_topk_select(
+            x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, n,
+            x.stride(0) if rows > 1 else n, k, _KERNEL_DTYPES[dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(lib, code, "topk_select")
+        LAUNCHES["topk_select"] += 1
+    return vals.reshape(*lead, k), idx.reshape(*lead, k)
 
 
 def fast_topk(
@@ -41,7 +122,7 @@ def fast_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-stage top-k: the ``overfetch * k`` best of a bfloat16 copy,
     then the exact f32 top-k of those candidates. Returned values are the
-    f32 scores. Both stages are stable sorts, so ties go to the lower
+    f32 scores. Both stages are :func:`topk`, so ties go to the lower
     position, as ``lax.top_k``'s do in ``osr_tpu``."""
     n = scores.shape[-1]
     kk = min(k, n)
@@ -87,8 +168,8 @@ def block_topm(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each ``block_cols``-column block's m largest scores: ((B, G, m)
     values, (B, G, m) int32 columns), G = ceil(R / block_cols), columns
-    past R counted as -inf. A stable descending sort per block, so ties go
-    to the lower column and equal values come out in column order."""
+    past R counted as -inf. :func:`topk` per block, so ties go to the
+    lower column and equal values come out in column order."""
     b, r = scores.shape
     g = -(-r // block_cols)
     pad = g * block_cols - r
@@ -139,7 +220,7 @@ def block_topk_from_max(
     head kernels K2/K3 reduce them inside the matmul's thread blocks).
 
     Candidates are laid out block-rank-major, lane-minor, as in the
-    reference, so the stable final sort reproduces ``lax.top_k``'s order
+    reference, so the final selection reproduces ``lax.top_k``'s order
     among ties. Returns (values (B, k'), int32 rows (B, k'))."""
     b, r = scores.shape
     kk = min(k, r)
